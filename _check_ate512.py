@@ -1,14 +1,20 @@
-"""Pose accuracy of the 512^3 bench configuration (synthetic orbit, TPU)."""
+"""Pose accuracy of the 512^3 bench configuration (synthetic orbit).
+
+Needs a GPU; PLATFORM=cpu runs on the CPU instead.
+"""
 import os
 import numpy as np
-import jax.numpy as jnp
 
-from instancefusion_tpu.config import (
-    EngineConfig, IcpConfig, PreprocessConfig, RaycastConfig, TsdfConfig,
+from instancefusion_tpu.utils.runtime import setup
+
+setup(os.environ.get("PLATFORM"))
+
+from instancefusion_tpu.config import (  # noqa: E402
+    EngineConfig, IcpConfig, RaycastConfig, TsdfConfig,
 )
-from instancefusion_tpu.datasets import synthetic
-from instancefusion_tpu.engine import slam
-from instancefusion_tpu.geometry.camera import TUM_FR1
+from instancefusion_tpu.datasets import synthetic  # noqa: E402
+from instancefusion_tpu.engine import slam  # noqa: E402
+from instancefusion_tpu.geometry.camera import TUM_FR1  # noqa: E402
 
 grid = 512
 extent = grid * 0.0075
@@ -18,14 +24,12 @@ cfg = EngineConfig(
         voxel_size=extent / grid * 2, trunc=6 * extent / grid * 2,
         grid_size=grid, origin=(-extent, -extent, 1.2 - extent),
         block_size=8, table_capacity=65536, touched_capacity=2048,
-        use_pallas=True,
     ),
-    icp=IcpConfig(iters=(10, 5, 4), rgb_weight=0.0, use_pallas=True,
+    icp=IcpConfig(iters=(10, 5, 4), rgb_weight=0.0,
                   assoc_every=(2, 2, 4)),
     raycast=RaycastConfig(near=0.2, far=4.0, use_depth_prior=True,
-                          screen_space_normals=True, use_splat=True,
+                          screen_space_normals=True,
                           predict_color=False),
-    preprocess=PreprocessConfig(use_pallas=True),
     map_kind="blocks", use_color=True,
 )
 
@@ -34,7 +38,7 @@ n = int(os.environ.get("N", "40"))
 # VERDICT item 4); default stays the clean orbit for parity with
 # earlier rounds' numbers.
 #
-# Calibration note (measured 2026-08-21): the rig below matches TUM
+# Calibration note: the rig below matches TUM
 # fr1_desk's MEAN velocities (23 deg/s, 0.41 m/s -> ~0.8 deg / ~13 mm
 # per 30 Hz frame) with ~2x peaks — errors stay <10 mm through the
 # noise.  SWEEP/SHAKE env knobs raise it; at ~3x fr1-mean rotation
@@ -42,16 +46,14 @@ n = int(os.environ.get("N", "40"))
 # worst seconds held continuously) frame-to-model tracking at VGA
 # accumulates 50-100 mm map-feedback drift with no tracking-health
 # trip — a known open robustness limit (frames fuse slightly
-# misaligned, the map drags the next solve), NOT a Pallas-path bug:
-# the jnp path drifts identically, and knob bisects (assoc_every=1,
-# vel_seed=0, more iters) do not rescue it.
+# misaligned, the map drags the next solve); knob bisects
+# (assoc_every=1, vel_seed=0, more iters) do not rescue it.
 noisy = os.environ.get("NOISY", "0") == "1"
 if noisy:
     import dataclasses
 
     import jax
 
-    icp_pallas = os.environ.get("ICP_PALLAS", "1") == "1"
     ae = int(os.environ.get("ASSOC", "0"))
     assoc = (ae, ae, ae) if ae else (2, 2, 4)
     vel = float(os.environ.get("VEL", "0.8"))
@@ -61,7 +63,7 @@ if noisy:
     rgb_w = float(os.environ.get("RGB", "0.0"))
     cfg = dataclasses.replace(
         cfg,
-        icp=IcpConfig(iters=(10, 5, 4), rgb_weight=rgb_w, use_pallas=icp_pallas,
+        icp=IcpConfig(iters=(10, 5, 4), rgb_weight=rgb_w,
                       assoc_every=assoc, vel_seed=vel),
     )
     textured = os.environ.get("TEXTURE", "0") == "1"

@@ -9,18 +9,14 @@ landmark Schur BA, relocalization, and the map-consistency sentinel
 out-of-cadence keyframe/loop-closure attempts — and reports whether
 closure arrests the drift.
 
-TPU results at the graded 512^3/VGA config (2026-08-21, r5):
-- bare engine (no pipeline):              50-100 mm mean (README limit)
-- pipeline, SENTINEL=0 (cadence loops):   19.5 mm mean, ATE 5.4 mm
-- pipeline, SENTINEL=1 forced keyframes:  17.2 mm mean, ATE 8.8 mm,
-  alarms on 109/120 frames (first at 11) — the drift is DETECTED and
-  ARRESTED (6 loop closures vs 3 at plain cadence).
-- the rejected policy (hard fern relocalization on persistent alarm)
-  measured 655 mm mean: re-seating against a low-overlap retrieved
-  keyframe mid-sweep is worse than the drift it fights.
+A rejected policy, hard fern relocalization on a persistent alarm, re-
+seats against a low-overlap retrieved keyframe mid-sweep and does worse
+than the drift it fights; the pipeline forces loop-closure keyframes
+instead.
 
-Env: N (frames, default 120), SWEEP (1.6), SHAKE (0.02), GRID (512),
-KF_EVERY (8), SENTINEL (1).  Prints per-phase stats + final ATE.
+Needs a GPU; PLATFORM=cpu runs on the CPU instead.  Env: N (frames,
+default 120), SWEEP (1.6), SHAKE (0.02), GRID (512), KF_EVERY (8),
+SENTINEL (1).  Prints per-phase stats + final ATE.
 """
 import json
 import os
@@ -28,11 +24,13 @@ import os
 import numpy as np
 
 import jax
-import jax.numpy as jnp  # noqa: F401
 
-from instancefusion_tpu.config import (
-    EngineConfig, IcpConfig, PoseGraphConfig, PreprocessConfig,
-    RaycastConfig, TsdfConfig,
+from instancefusion_tpu.utils.runtime import setup
+
+setup(os.environ.get("PLATFORM"))
+
+from instancefusion_tpu.config import (  # noqa: E402
+    EngineConfig, IcpConfig, PoseGraphConfig, RaycastConfig, TsdfConfig,
 )
 from instancefusion_tpu.datasets import synthetic
 from instancefusion_tpu.engine import pipeline
@@ -43,21 +41,18 @@ from instancefusion_tpu.utils.metrics import MetricsWriter
 grid = int(os.environ.get("GRID", "512"))
 n = int(os.environ.get("N", "120"))
 extent = grid * 0.0075
-on_tpu = jax.default_backend() == "tpu"
 cfg = EngineConfig(
     intrinsics=TUM_FR1,
     tsdf=TsdfConfig(
         voxel_size=extent / grid * 2, trunc=6 * extent / grid * 2,
         grid_size=grid, origin=(-extent, -extent, 1.2 - extent),
         block_size=8, table_capacity=65536, touched_capacity=2048,
-        use_pallas=on_tpu,
     ),
-    icp=IcpConfig(iters=(10, 5, 4), rgb_weight=0.0, use_pallas=on_tpu,
+    icp=IcpConfig(iters=(10, 5, 4), rgb_weight=0.0,
                   assoc_every=(2, 2, 4), vel_seed=0.8),
     raycast=RaycastConfig(near=0.2, far=4.0, use_depth_prior=True,
-                          screen_space_normals=True, use_splat=on_tpu,
+                          screen_space_normals=True,
                           predict_color=False),
-    preprocess=PreprocessConfig(use_pallas=on_tpu),
     posegraph=PoseGraphConfig(
         keyframe_every=int(os.environ.get("KF_EVERY", "8")),
         loop_dist_thresh=float(os.environ.get("LOOP_THRESH", "0.12")),

@@ -1,15 +1,16 @@
 """Scaling sweep: sharded-engine frames/s at 1..N shards (SURVEY §5).
 
-On a real TPU slice this measures strong-scaling efficiency of the
-slab-sharded map (BASELINE target: >= 70 % at N = 4 hosts); on this box
-(one chip) it can still run functionally on a virtual CPU mesh:
+On the GPUs of one host this measures strong-scaling efficiency of the
+slab-sharded map (BASELINE target: >= 70 % at N = 4); on a virtual CPU mesh
+it runs functionally:
 
-    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+    BENCH_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python bench_scaling.py          # functional validation only
 
-Multi-host: launch one process per host with SCALE_COORD/SCALE_NPROC/
-SCALE_PID set (jax.distributed.initialize via parallel.mesh); the mesh
-then spans hosts (ICI within, DCN across) with no code change.
+One process normally drives every GPU of the host.  Multi-process: launch
+one process per device with SCALE_COORD/SCALE_NPROC/SCALE_PID set
+(jax.distributed.initialize via parallel.mesh); on GPUs each process takes
+the one card SCALE_LOCAL_DEVICE (default SCALE_PID) names.
 
 Prints one JSON line per shard count:
   {"metric": "sharded_frames_per_s", "shards": S, "value": fps,
@@ -26,18 +27,24 @@ import time
 def main() -> None:
     import jax
 
+    platform = os.environ.get("BENCH_PLATFORM")
+    if platform:
+        jax.config.update("jax_platforms", platform)
     if os.environ.get("SCALE_COORD"):
         from instancefusion_tpu.parallel.mesh import initialize_multihost
 
+        pid = int(os.environ["SCALE_PID"])
         initialize_multihost(
             coordinator=os.environ["SCALE_COORD"],
             num_processes=int(os.environ["SCALE_NPROC"]),
-            process_id=int(os.environ["SCALE_PID"]),
+            process_id=pid,
+            local_device_ids=None if platform == "cpu" else [
+                int(os.environ.get("SCALE_LOCAL_DEVICE", pid))
+            ],
         )
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
+    from instancefusion_tpu.utils.runtime import setup
 
-    import jax.numpy as jnp
+    dev = setup(platform)
 
     from instancefusion_tpu.config import (
         EngineConfig, IcpConfig, RaycastConfig, TsdfConfig,
@@ -64,10 +71,10 @@ def main() -> None:
         sweep.append(s)
         s *= 2
 
-    # The fast path (use_splat): per-shard raycast work is proportional to
-    # the shard's OWN in-frustum block count, not all-pixels-everywhere —
-    # emitted below as blocks_per_shard_max so the sweep shows per-shard
-    # work dropping as shards grow (r3 VERDICT item 2).
+    # The splat path (use_splat): per-shard prediction work is
+    # proportional to the shard's OWN in-frustum block count, not
+    # all-pixels-everywhere — emitted below as blocks_per_shard_max so the
+    # sweep shows per-shard work dropping as shards grow.
     use_splat = os.environ.get("SCALE_SPLAT", "1") != "0"
     rmax = int(os.environ.get("SCALE_RMAX", "3"))
     base_fps = None
@@ -96,11 +103,11 @@ def main() -> None:
         ]
         for i in range(2):
             state, _ = step(state, frames[i].depth, frames[i].color)
-        float(jnp.sum(state.T_wc))
+        jax.block_until_ready(state)
         t0 = time.perf_counter()
         for i in range(2, 2 + nframes):
             state, _ = step(state, frames[i].depth, frames[i].color)
-        float(jnp.sum(state.T_wc))
+        jax.block_until_ready(state)
         fps = nframes / (time.perf_counter() - t0)
         if base_fps is None:
             base_fps = fps
@@ -111,8 +118,10 @@ def main() -> None:
         print(json.dumps({
             "metric": "sharded_frames_per_s",
             "shards": shards,
-            "value": round(fps, 3),
-            "efficiency_vs_1": round(fps / base_fps, 3),
+            "value": fps,
+            "efficiency_vs_1": fps / base_fps,
+            "device": {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": len(jax.devices())},
             "splat_fast_path": use_splat,
             "blocks_total": int(counts.sum()),
             "blocks_per_shard_max": int(counts.max()),

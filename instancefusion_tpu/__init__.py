@@ -1,23 +1,23 @@
-"""TPU-native instance-level dense RGB-D SLAM.
+"""Instance-level dense RGB-D SLAM in JAX.
 
-A brand-new JAX/XLA/Pallas/pjit framework with the capabilities of the
-reference ``Fancomi2017/InstanceFusion`` (instance-level dense SLAM built on
-ElasticFusion) — redesigned TPU-first, not ported:
+A JAX/XLA framework with the capabilities of the reference
+``Fancomi2017/InstanceFusion`` (instance-level dense SLAM built on
+ElasticFusion), redesigned for XLA rather than ported:
 
 - frame-to-model tracking: point-to-plane ICP + photometric term, 3-level
   pyramid, the whole iteration loop on-device under one ``jit``
   (reference: ``Core/src/RGBDOdometry.cpp`` + CUDA ``icpStep``/``rgbStep``
   kernels — expected upstream layout, see SURVEY.md §0 provenance caveat);
-- map: TSDF voxel volume (dense and voxel-block-hashed) with Pallas
-  integrate + raycast kernels (reference: surfel map in
-  ``Core/src/GlobalModel.cpp`` + GLSL; the TSDF representation is mandated
-  by the BASELINE.json contract);
+- map: TSDF voxel volume (dense and voxel-block-hashed) with plain XLA
+  integrate + raycast (reference: surfel map in ``Core/src/GlobalModel.cpp``
+  + GLSL; the TSDF representation is mandated by the BASELINE.json
+  contract);
 - instances: JAX segmentation head + per-voxel label voting
   (reference: Mask R-CNN + CUDA label kernels);
 - loop closure: keyframe pose graph + Schur-complement BA with collective
   reductions (reference: ferns + embedded deformation graph);
-- distribution: voxel blocks sharded over a device mesh via ``shard_map``,
-  halo exchange over ICI (new — the reference is single-GPU).
+- distribution: voxel blocks sharded over a 1-D device mesh via
+  ``shard_map``, with halo exchange (new — the reference is single-GPU).
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 
 def _add_run_args(p: argparse.ArgumentParser) -> None:
@@ -22,8 +21,11 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
         help="'synthetic', or a path to a TUM-format sequence directory",
     )
     p.add_argument("--frames", type=int, default=30)
-    p.add_argument("--small", action="store_true", help="use the small test camera/volume")
-    p.add_argument("--platform", default=None, help="force jax platform (e.g. cpu)")
+    p.add_argument("--small", action="store_true",
+                   help="run the preset on a small test camera/volume")
+    p.add_argument("--platform", default=None,
+                   help="JAX platform to run on (e.g. cpu); by default the "
+                        "run needs a GPU and fails without one")
     p.add_argument("--metrics-out", default=None, help="write JSONL metrics here")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--loops", action="store_true", help="enable keyframes + loop closure")
@@ -62,9 +64,9 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--local-every", type=int, default=3,
                    help="local-loop evidence poll cadence in frames")
     p.add_argument("--shards", type=int, default=0,
-                   help="override the preset's map shard count (0 = preset "
-                        "default; >1 runs the slab-sharded engine on a "
-                        "device mesh — configs 4/5)")
+                   help="map shard count (0 = the preset's: configs 4/5 take "
+                        "one shard per visible device; >1 runs the slab-"
+                        "sharded engine on a 1-D device mesh)")
     p.add_argument("--reshard-every", type=int, default=0,
                    help="occupancy-rebalance poll cadence for the sharded "
                         "map (0 = off; fires on skew > --reshard-skew)")
@@ -77,42 +79,50 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
                         "persistent alarm forces out-of-cadence loop-closure "
                         "keyframes)")
     p.add_argument("--sentinel-thresh", type=float, default=0.0012,
-                   help="sentinel alarm threshold in meters (TPU-calibrated "
-                        "default splits clean vs map-dragging regimes ~2.6x "
-                        "both ways at the graded config)")
+                   help="sentinel alarm threshold in meters (the default "
+                        "splits clean vs map-dragging regimes on the "
+                        "synthetic 512^3 rig)")
 
 
 def cmd_run(args: argparse.Namespace) -> int:
     import jax
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    if args.platform == "cpu" and args.shards > 1:
+        # The sharded engine needs a device mesh; on the CPU platform fork
+        # enough virtual devices.  Must run before the backend initializes.
+        try:
+            jax.config.update("jax_num_cpu_devices", args.shards)
+        except RuntimeError:
+            pass  # backend already up (e.g. env flags set the count)
+
+    from instancefusion_tpu.utils.runtime import setup
+
+    setup(args.platform)
 
     import numpy as np
 
-    from instancefusion_tpu.config import PRESETS
-    from instancefusion_tpu.engine import slam
+    from instancefusion_tpu.config import PRESETS, resolve_shards
     from instancefusion_tpu.utils.ate import ate_rmse
 
+    cfg = PRESETS[args.preset]()
     if args.small:
+        # The preset's paths (map kind, shards, instances, predictor) on a
+        # 160x120 camera and a 96^3 volume.
         import dataclasses
 
-        from instancefusion_tpu.config import EngineConfig, IcpConfig, RaycastConfig, TsdfConfig
+        from instancefusion_tpu.config import IcpConfig, TsdfConfig
         from instancefusion_tpu.geometry.camera import Intrinsics
 
-        cfg = EngineConfig(
+        cfg = dataclasses.replace(
+            cfg,
             intrinsics=Intrinsics(fx=129.3, fy=129.1, cx=79.5, cy=59.5, width=160, height=120),
-            tsdf=TsdfConfig(voxel_size=0.04, trunc=0.12, grid_size=96, origin=(-1.92, -1.92, -0.4)),
+            tsdf=TsdfConfig(voxel_size=0.04, trunc=0.12, grid_size=96,
+                            origin=(-1.92, -1.92, -0.4), table_capacity=2048),
             icp=IcpConfig(iters=(10, 7, 7), min_valid=60, rgb_weight=0.0),
-            raycast=RaycastConfig(near=0.2, far=4.0),
+            raycast=dataclasses.replace(cfg.raycast, near=0.2, far=4.0),
         )
-    else:
-        cfg = PRESETS[args.preset]()
 
-    if args.shards:
-        import dataclasses as _dcs
-
-        cfg = _dcs.replace(cfg, num_shards=args.shards)
+    cfg = resolve_shards(cfg, args.shards)
     if args.sentinel:
         import dataclasses as _dcs
 
@@ -120,16 +130,6 @@ def cmd_run(args: argparse.Namespace) -> int:
             cfg, consistency_check=True,
             consistency_thresh=args.sentinel_thresh,
         )
-    if cfg.num_shards > 1 and args.platform == "cpu":
-        # The sharded engine (configs 4/5) needs a device mesh; on the CPU
-        # platform fork enough virtual devices (the SURVEY §5 multi-host-
-        # without-a-cluster mode).  Must run before the backend
-        # initializes — nothing above computes with jax.
-        try:
-            jax.config.update("jax_num_cpu_devices", cfg.num_shards)
-        except RuntimeError:
-            pass  # backend already up (e.g. env flags set the count)
-
     if args.dataset == "synthetic":
         from instancefusion_tpu.datasets import synthetic
 
@@ -285,6 +285,11 @@ def cmd_run(args: argparse.Namespace) -> int:
         "keyframes": res.n_keyframes,
         "loop_closures": res.n_loops,
     }
+    if cfg.map_kind == "blocks":
+        summary["blocks"] = int(np.sum(np.asarray(res.state.volume.n_active)))
+    if res.state.votes is not None:
+        summary["instances"] = int(np.sum(np.asarray(res.state.table.active)))
+        summary["voted_voxels"] = int(np.sum(np.asarray(res.state.votes.count) > 0))
     if gt is not None and len(res.poses) == len(gt):
         summary["ate_rmse_m"] = ate_rmse(res.poses, np.asarray(gt))
     print(json.dumps({"summary": summary}))

@@ -1,6 +1,6 @@
 """Instance table and 2D-3D data association.
 
-TPU-native equivalent of the reference's instance-table management and
+XLA-friendly equivalent of the reference's instance-table management and
 mask-to-model matching (SURVEY.md §4.5): the reference projects the
 instance-labeled surfel model into the camera, matches each new network
 mask to a predicted instance region by overlap, then votes labels onto
@@ -10,7 +10,7 @@ surfels.  Here:
   replicated): active/class/score/age per global instance id.
 - The overlap matrix between the frame's K network masks and the N table
   instances visible in the predicted-label image is ONE one-hot matmul
-  (HW x K)ᵀ(HW x N) on the MXU — no per-mask loops.
+  (HW x K)ᵀ(HW x N) — no per-mask loops.
 - Matching is greedy-by-IoU with a class-consistency gate; unmatched
   masks allocate new table rows by prefix sum (same deterministic
   allocation pattern as the block table).
@@ -81,7 +81,7 @@ def associate(
     mask_flat = seg.mask_id.reshape(-1)
     pred_flat = pred_gid.reshape(-1)
 
-    # One-hot overlap histogram on the MXU.
+    # One-hot overlap histogram (integer counts: exact at any precision).
     oh_mask = jax.nn.one_hot(jnp.where(mask_flat >= 0, mask_flat, k), k + 1)
     oh_pred = jax.nn.one_hot(jnp.where(pred_flat >= 0, pred_flat, n), n + 1)
     overlap = jnp.einsum("pk,pn->kn", oh_mask[:, :k], oh_pred[:, :n])  # (K,N)

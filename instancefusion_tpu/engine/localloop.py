@@ -7,7 +7,7 @@ time-windowed local loops, listed in SURVEY.md §3 ("Local loop closure:
 model-to-model registration of active vs inactive map parts", expected in
 `Core/src/ElasticFusion.cpp`).
 
-The TPU block-map analog:
+The block-map analog:
 
 - `slam.step` keeps per-slot observation stamps (last_fused, gap) — see
   `slam._update_stamps`.  A block whose latest update streak began after
@@ -17,9 +17,8 @@ The TPU block-map analog:
 - `evidence_count` (jit, ~one vector pass over the slot axis) is the cheap
   per-cadence detector the host polls.
 - `attempt` renders a prediction from ONLY the old/revisited blocks (the
-  inactive model view — the splat raycaster takes an explicit slot list,
-  so this is the same kernel as tracking prediction with a different
-  compaction mask) and runs the full coarse-to-fine ICP of the current
+  inactive model view — the splat predictor (ops/splat.py) takes an
+  explicit slot list, so only the compaction mask differs) and runs the full coarse-to-fine ICP of the current
   frame against it.  Success yields the drift-corrected camera pose in the
   map frame.
 - The host (engine/pipeline.py) re-seats the engine at the corrected pose,
@@ -100,7 +99,6 @@ def attempt(
     pred = blocks.raycast_splat(
         state.volume, state.T_wc, cfg.intrinsics, cfg.tsdf, slots, slot_valid,
         with_color=False,
-        interpret=jax.default_backend() != "tpu",
         rmax=cfg.raycast.splat_rmax,
     )
     n_pred = jnp.sum(pred.valid.astype(jnp.float32))
@@ -114,7 +112,6 @@ def attempt(
         rgb_weight=0.0, damping=cfg.icp.damping,
         huber_delta=cfg.icp.huber_delta,
         min_valid=pg.local_min_pixels // 4,
-        use_pallas=cfg.icp.use_pallas,
     )
     pyr = _pyramid_from_maps(vmap_c, nmap_c, valid, cfg.icp.levels)
     result = icp.track(

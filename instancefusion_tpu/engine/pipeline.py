@@ -33,7 +33,7 @@ from instancefusion_tpu.engine import localloop as ll, posegraph as pg, slam
 from instancefusion_tpu.geometry.se3 import se3_inverse
 from instancefusion_tpu.ops import preprocess
 from instancefusion_tpu.utils import checkpoint as ckpt
-from instancefusion_tpu.utils.metrics import MetricsWriter, Timer, sync_fetch
+from instancefusion_tpu.utils.metrics import MetricsWriter, Timer
 
 _PREC = jax.lax.Precision.HIGHEST
 
@@ -597,7 +597,7 @@ def run(
             timer.times_ms.clear()
 
         if checkpoint_dir and (i + 1) % checkpoint_every == 0:
-            sync_fetch((state, backend, T_wm))
+            jax.block_until_ready((state, backend, T_wm))
             ckpt.save(checkpoint_dir, (state, backend, T_wm), cfg, i + 1)
             if streamer is not None:
                 streamer.save(os.path.join(
@@ -607,7 +607,7 @@ def run(
     # Flush the last in-flight segmentation so its votes are not lost.
     if pending_seg is not None:
         state = _fuse_seg(state, *pending_seg)
-    sync_fetch(state.T_wc)
+    jax.block_until_ready(state.T_wc)
     elapsed = time.perf_counter() - t0
     n = len(est)
     return PipelineResult(

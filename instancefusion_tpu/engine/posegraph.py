@@ -5,7 +5,7 @@ global loops with a fern keyframe database, verifies them by registration,
 and corrects the map with an embedded deformation graph; here the map
 correction is the BASELINE-mandated keyframe pose graph optimized by
 Gauss-Newton (ops/ba.py), with loop edges produced by re-running the
-Pallas/jnp ICP between the current frame and the retrieved keyframe's
+tracking ICP between the current frame and the retrieved keyframe's
 stored maps.
 
 All state is fixed-capacity pytrees; the host driver (cli / pipeline)

@@ -10,7 +10,6 @@ replicated — the map, not the sequence, is the long axis (SURVEY.md §6).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -75,7 +74,7 @@ def init_state(cfg: EngineConfig, mesh: Mesh, T_init_wc=None) -> ShardedSlamStat
 
 
 def _map_update(cfg: EngineConfig, mesh: Mesh, state, depth_masked, color, T_new):
-    """Shared fuse+predict: fast fused path (use_splat) or marched golden."""
+    """Shared fuse+predict: splat path (use_splat) or the marched path."""
     intr = cfg.intrinsics
     if cfg.raycast.use_splat:
         prior = jnp.where(depth_masked > 0.0, depth_masked, state.pred.depth)
@@ -93,9 +92,14 @@ def _map_update(cfg: EngineConfig, mesh: Mesh, state, depth_masked, color, T_new
         color if cfg.use_color else None,
         T_new, mesh, intr, cfg.tsdf,
     )
+    # The single-device engine's per-frame fast paths (slam.step).
+    prior = None
+    if cfg.raycast.use_depth_prior:
+        prior = jnp.where(depth_masked > 0.0, depth_masked, state.pred.depth)
     pred = shard.raycast(
         volume, T_new, mesh, intr, cfg.tsdf, cfg.raycast,
-        with_color=cfg.use_color,
+        with_color=cfg.use_color, depth_prior=prior,
+        screen_space_normals=cfg.raycast.screen_space_normals,
     )
     return volume, pred
 
@@ -140,8 +144,7 @@ def _step_fn(cfg: EngineConfig, mesh: Mesh):
             intr,
             cfg.icp,
             pred_intensity=pred_intensity,
-            pred_depth=state.pred.depth,
-        )
+            )
         first = state.frame_idx == 0
         fuse_ok = result.valid | first
         T_new = jnp.where(result.valid, result.T_wc, state.T_wc)
@@ -177,10 +180,11 @@ def make_step(cfg: EngineConfig, mesh: Mesh, donate: bool = False):
 
     The mesh is closed over (it is not a pytree); the returned function
     has the same signature/behavior as engine/slam.step.  With
-    `cfg.raycast.use_splat` the map work runs the fused fast path
+    `cfg.raycast.use_splat` the map work runs the splat path
     (shard.fused_step_map — list-based allocation, slot-addressed
-    integrate, per-shard MXU splat prediction with depth prior); without
-    it the marched golden path (shard.integrate + shard.raycast) runs.
+    integrate, per-shard splat prediction composited exactly by psum);
+    without it the marched path (shard.integrate + shard.raycast, halo
+    exchange at slab seams) runs.
     `donate=True` donates the input state (sequential drivers rebind it
     every frame, letting XLA update the sharded payload in place).
     """

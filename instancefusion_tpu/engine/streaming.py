@@ -2,7 +2,7 @@
 
 The reference bounds map growth with surfel culling and a time-windowed
 active/inactive model split (SURVEY.md §6 "long-context": the map — not a
-sequence — is the long axis here).  On TPU the analog is explicit
+sequence — is the long axis here).  The analog here is explicit
 capacity management: HBM holds only the **active window** of voxel blocks
 around the camera; cold blocks stream to host DRAM and stream back when
 the camera returns.  This keeps `table_capacity` (and with it every

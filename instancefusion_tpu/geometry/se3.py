@@ -23,10 +23,10 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# Pose algebra operates on 3x3/4x4 matrices — negligible FLOPs, but on TPU
-# the default matmul precision routes through bf16 MXU passes (~3 decimal
-# digits), which is far too coarse for mm-level tracking.  Force full-f32
-# for every matmul in this module.
+# Pose algebra operates on 3x3/4x4 matrices — negligible FLOPs, but the
+# default f32 matmul precision may run in TF32 on GPUs (~3 decimal digits),
+# far too coarse for mm-level tracking.  Force full f32 for every matmul in
+# this module.
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -1,9 +1,9 @@
-"""JAX instance-segmentation head (Panoptic-DeepLab-style, TPU-first).
+"""JAX instance-segmentation head (Panoptic-DeepLab-style).
 
 Replaces the reference's asynchronous TensorFlow Mask R-CNN bridge
 (expected `MaskRCNN/` + C++ glue — SURVEY.md §3 "Instance segmentation
 net", §4.5).  Mask R-CNN's proposal/NMS pipeline is dynamic-shaped and
-hostile to XLA; the TPU-native design is a dense-prediction network whose
+hostile to XLA; the design here is a dense-prediction network whose
 entire forward + instance grouping is static-shaped:
 
 - ConvNet encoder/decoder (strided convs + GroupNorm + GELU, skip
@@ -12,9 +12,9 @@ entire forward + instance grouping is static-shaped:
 - Instance extraction: max-pool NMS on the heatmap, `top_k` centers
   (static K), every foreground pixel votes for its nearest predicted
   center — one (HW, K) distance argmin, no loops, no dynamic shapes.
-- Class per instance by a one-hot matmul histogram (MXU).
+- Class per instance by a one-hot matmul histogram.
 
-The network is params-pluggable (train elsewhere, load via orbax); the
+The network is plain `lax` over a params pytree (`head_apply`); the
 engine also accepts externally produced masks (e.g. ground truth or an
 offline model) through the same `Segmentation` record, which is what the
 synthetic end-to-end tests use.
@@ -24,7 +24,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -38,56 +37,77 @@ class Segmentation(NamedTuple):
     valid: jnp.ndarray  # bool[K] — instance slot populated
 
 
-class _ConvBlock(nn.Module):
-    ch: int
-    stride: int = 1
-
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Conv(self.ch, (3, 3), strides=(self.stride, self.stride))(x)
-        x = nn.GroupNorm(num_groups=min(8, self.ch))(x)
-        return nn.gelu(x)
+# Parameter tree of the head, keyed exactly as the packaged checkpoint
+# (`load_pretrained`): eight 3x3 conv blocks -- encoder e1..e4, middle, and
+# decoder d3, d2, d1 -- then three 1x1 prediction convs (semantic, center,
+# offset).
+_BLOCK_SCALE = (1, 2, 4, 8, 8, 4, 2, 1)  # output channels / width
+_GN_EPS = 1e-6
 
 
-class PanopticHead(nn.Module):
-    """Encoder/decoder with semantic + center + offset outputs.
+def _conv(p, x, stride: int = 1):
+    """NHWC 'SAME' convolution with bias; f32 inputs may run in TF32 on
+    GPUs (the head's tolerance is its segmentation quality, not digits)."""
+    y = jax.lax.conv_general_dilated(
+        x, p["kernel"], (stride, stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+    return y + p["bias"]
 
-    Channels are deliberately modest (the reference runs Mask R-CNN every
-    k frames on a desktop GPU; this head is sized to run per-keyframe on
-    one chip alongside tracking/fusion).
+
+def _group_norm(p, x, groups: int):
+    """GroupNorm over (H, W, C/groups) per example, then scale + bias."""
+    n, h, w, c = x.shape
+    g = x.reshape(n, h, w, groups, c // groups)
+    mean = jnp.mean(g, axis=(1, 2, 4), keepdims=True)
+    var = jnp.maximum(
+        jnp.mean(g * g, axis=(1, 2, 4), keepdims=True) - mean * mean, 0.0
+    )
+    g = (g - mean) * jax.lax.rsqrt(var + _GN_EPS)
+    return g.reshape(n, h, w, c) * p["scale"] + p["bias"]
+
+
+def _conv_block(p, x, stride: int = 1):
+    x = _conv(p["Conv_0"], x, stride)
+    ch = x.shape[-1]
+    return jax.nn.gelu(_group_norm(p["GroupNorm_0"], x, min(8, ch)))
+
+
+def head_apply(params, rgb):
+    """Panoptic head forward: rgb f32[H,W,3] in [0,1] (or [B,H,W,3]) ->
+    (semantic logits [..,C], center heatmap [..], offsets [..,2]).
+
+    Encoder/decoder of strided 3x3 convs + GroupNorm + GELU with skip
+    connections; channels are deliberately modest (the reference runs
+    Mask R-CNN every k frames on a desktop GPU; this head is sized to run
+    per-keyframe on one device alongside tracking/fusion).
     """
+    p = params["params"]
+    batched = rgb.ndim == 4
+    x = rgb if batched else rgb[None]
+    blk = [p[f"_ConvBlock_{i}"] for i in range(8)]
+    e1 = _conv_block(blk[0], x)  # H
+    e2 = _conv_block(blk[1], e1, 2)  # H/2
+    e3 = _conv_block(blk[2], e2, 2)  # H/4
+    e4 = _conv_block(blk[3], e3, 2)  # H/8
+    m = _conv_block(blk[4], e4)
 
-    num_classes: int = 41
-    width: int = 32
+    def up(x, skip, bp):
+        x = jax.image.resize(
+            x, (x.shape[0], skip.shape[1], skip.shape[2], x.shape[3]), "bilinear"
+        )
+        return _conv_block(bp, jnp.concatenate([x, skip], axis=-1))
 
-    @nn.compact
-    def __call__(self, rgb):  # f32[H,W,3] in [0,1] (or [B,H,W,3])
-        batched = rgb.ndim == 4
-        x = rgb if batched else rgb[None]
-        w = self.width
-        e1 = _ConvBlock(w)(x)  # H
-        e2 = _ConvBlock(w * 2, stride=2)(e1)  # H/2
-        e3 = _ConvBlock(w * 4, stride=2)(e2)  # H/4
-        e4 = _ConvBlock(w * 8, stride=2)(e3)  # H/8
-        m = _ConvBlock(w * 8)(e4)
+    d3 = up(m, e3, blk[5])
+    d2 = up(d3, e2, blk[6])
+    d1 = up(d2, e1, blk[7])
 
-        def up(x, skip, ch):
-            x = jax.image.resize(
-                x, (x.shape[0], skip.shape[1], skip.shape[2], x.shape[3]), "bilinear"
-            )
-            x = jnp.concatenate([x, skip], axis=-1)
-            return _ConvBlock(ch)(x)
-
-        d3 = up(m, e3, w * 4)
-        d2 = up(d3, e2, w * 2)
-        d1 = up(d2, e1, w)
-
-        sem = nn.Conv(self.num_classes, (1, 1))(d1)
-        center = nn.Conv(1, (1, 1))(d1)[..., 0]
-        offset = nn.Conv(2, (1, 1))(d1)
-        if not batched:
-            sem, center, offset = sem[0], center[0], offset[0]
-        return sem, center, offset
+    sem = _conv(p["Conv_0"], d1)
+    center = _conv(p["Conv_1"], d1)[..., 0]
+    offset = _conv(p["Conv_2"], d1)
+    if not batched:
+        sem, center, offset = sem[0], center[0], offset[0]
+    return sem, center, offset
 
 
 def extract_instances(
@@ -154,8 +174,7 @@ def extract_instances(
     mask_id = jnp.where(fg, assign, -1).reshape(h, w)
 
     # 3. Class per instance: histogram of semantic classes over each mask
-    # as a one-hot matmul (constant tables would poison this runtime's
-    # gather path; one-hots ride the MXU instead).
+    # as a one-hot matmul (integer counts: exact at any matmul precision).
     c = sem_logits.shape[-1]
     onehot_inst = jax.nn.one_hot(
         jnp.where(fg, assign, k), k + 1, dtype=jnp.float32
@@ -174,7 +193,7 @@ def extract_instances(
     # offset wild).  This is the precise filter against wrong-CLASS 3D
     # votes; same-class fragment merges pass through untouched (the IoU
     # association downstream handles those).
-    cls_px = classes[assign]  # gather from a traced vector — safe here
+    cls_px = classes[assign]
     keep = fg & (cls_px == sem_cls.reshape(-1))
     mask_id = jnp.where(keep, assign, -1).reshape(h, w)
     return Segmentation(
@@ -197,17 +216,44 @@ def segment(
     association can merge them), while over-thresholding MERGES distinct
     objects — the unrecoverable failure mode.
     """
-    model = PanopticHead(num_classes=num_classes, width=width)
-    sem, center, offset = model.apply(params, rgb)
+    del num_classes, width  # implied by the params' shapes
+    sem, center, offset = head_apply(params, rgb)
     return extract_instances(
         sem, center, offset, max_instances, center_thresh=center_thresh
     )
 
 
 def init_params(rng, height: int, width_px: int, num_classes: int, width: int = 32):
-    model = PanopticHead(num_classes=num_classes, width=width)
-    dummy = jnp.zeros((height, width_px, 3), jnp.float32)
-    return model.init(rng, dummy)
+    """Random head params: LeCun-normal kernels, zero biases, unit norms.
+
+    `height`/`width_px` are accepted for call-site compatibility; the
+    convolutional head's params do not depend on the image size.
+    """
+    del height, width_px
+    keys = iter(jax.random.split(rng, 11))
+    init = jax.nn.initializers.lecun_normal()
+
+    def conv(ksize, cin, cout):
+        return {
+            "bias": jnp.zeros((cout,), jnp.float32),
+            "kernel": init(next(keys), (ksize, ksize, cin, cout), jnp.float32),
+        }
+
+    chans = [width * s for s in _BLOCK_SCALE]
+    cins = [3, chans[0], chans[1], chans[2], chans[3],
+            chans[4] + chans[2], chans[5] + chans[1], chans[6] + chans[0]]
+    p = {}
+    for i, (cin, cout) in enumerate(zip(cins, chans)):
+        p[f"_ConvBlock_{i}"] = {
+            "Conv_0": conv(3, cin, cout),
+            "GroupNorm_0": {
+                "bias": jnp.zeros((cout,), jnp.float32),
+                "scale": jnp.ones((cout,), jnp.float32),
+            },
+        }
+    for i, cout in enumerate((num_classes, 1, 2)):
+        p[f"Conv_{i}"] = conv(1, width, cout)
+    return {"params": p}
 
 
 # Packaged pretrained checkpoint (trained in-repo by _train_seghead.py on
@@ -222,7 +268,7 @@ PRETRAINED_SYNTHETIC = {
 
 
 def save_pretrained(path: str, params) -> None:
-    """Flatten a flax params pytree into a float16-packed npz."""
+    """Flatten a head params pytree into a float16-packed npz."""
     import numpy as np
 
     flat = jax.tree_util.tree_flatten_with_path(params)[0]
@@ -315,8 +361,8 @@ def loss_fn(params, rgb, sem_t, center_t, offset_t, num_classes: int,
             width: int = 32, center_weight: float = 10.0,
             offset_weight: float = 30.0):
     """Combined loss: semantic CE + center MSE + masked offset L1."""
-    model = PanopticHead(num_classes=num_classes, width=width)
-    sem, center, offset = model.apply(params, rgb)
+    del num_classes, width  # implied by the params' shapes
+    sem, center, offset = head_apply(params, rgb)
     ce = -jnp.mean(
         jnp.take_along_axis(
             jax.nn.log_softmax(sem, axis=-1), sem_t[..., None], axis=-1

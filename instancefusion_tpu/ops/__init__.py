@@ -1,4 +1,4 @@
-"""Compute ops: kernels (jnp reference + Pallas) for the SLAM pipeline."""
+"""Compute ops for the SLAM pipeline (plain jnp/lax, compiled by XLA)."""
 
 from instancefusion_tpu.ops import (  # noqa: F401
     ba,

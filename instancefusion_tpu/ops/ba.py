@@ -4,9 +4,9 @@ Replaces the reference's map correction (embedded deformation graph with a
 CPU Gauss-Newton solve — `Core/src/Deformation.cpp`, expected layout,
 SURVEY.md §3 "Map correction") with the BASELINE-mandated design: a
 keyframe pose graph and loop-closure BA solved as a Schur-complement
-reduction that distributes over ICI collectives.
+reduction that distributes over collectives.
 
-TPU-first structure:
+Structure:
 
 - Per-edge/per-observation Jacobians come from `jax.jacfwd` vmapped over
   the edge axis — exact, branch-free, and trivially sharded (the edge
@@ -18,7 +18,7 @@ TPU-first structure:
   Schur BA.
 - Landmarks are eliminated analytically: Hll is 3x3 block-diagonal, so
   the Schur complement S = Hpp - Hpl Hll^-1 Hlp costs one batched 3x3
-  inverse + two batched matmuls (MXU work), never a big sparse solve.
+  inverse + two batched matmuls, never a big sparse solve.
 
 Conventions: pose i is T_wc[i] (camera->world); perturbation is
 right-multiplied, T <- T @ exp(xi).
@@ -113,15 +113,15 @@ def pose_graph_normal_eqs(
 
     H = jnp.zeros((m, m, 6, 6), poses.dtype)
     b = jnp.zeros((m, 6), poses.dtype)
-    JiTJi = jnp.einsum("eab,eac->ebc", Ji, Ji)
-    JjTJj = jnp.einsum("eab,eac->ebc", Jj, Jj)
-    JiTJj = jnp.einsum("eab,eac->ebc", Ji, Jj)
+    JiTJi = jnp.einsum("eab,eac->ebc", Ji, Ji, precision=_PREC)
+    JjTJj = jnp.einsum("eab,eac->ebc", Jj, Jj, precision=_PREC)
+    JiTJj = jnp.einsum("eab,eac->ebc", Ji, Jj, precision=_PREC)
     H = H.at[g.i, g.i].add(JiTJi)
     H = H.at[g.j, g.j].add(JjTJj)
     H = H.at[g.i, g.j].add(JiTJj)
     H = H.at[g.j, g.i].add(jnp.swapaxes(JiTJj, -1, -2))
-    b = b.at[g.i].add(-jnp.einsum("eab,ea->eb", Ji, r))
-    b = b.at[g.j].add(-jnp.einsum("eab,ea->eb", Jj, r))
+    b = b.at[g.i].add(-jnp.einsum("eab,ea->eb", Ji, r, precision=_PREC))
+    b = b.at[g.j].add(-jnp.einsum("eab,ea->eb", Jj, r, precision=_PREC))
     H = H.transpose(0, 2, 1, 3).reshape(6 * m, 6 * m)
     cost = jnp.sum(r * r)
     return H, b.reshape(-1), cost
@@ -213,13 +213,14 @@ def ba_partials(
 
     r, Jp, Jl = jax.vmap(one)(obs.k, obs.l, obs.z, obs.weight, obs.valid)
 
-    Hpp = jnp.zeros((m, 6, 6)).at[obs.k].add(jnp.einsum("oab,oac->obc", Jp, Jp))
-    Hll = jnp.zeros((L, 3, 3)).at[obs.l].add(jnp.einsum("oab,oac->obc", Jl, Jl))
+    ein = functools.partial(jnp.einsum, precision=_PREC)
+    Hpp = jnp.zeros((m, 6, 6)).at[obs.k].add(ein("oab,oac->obc", Jp, Jp))
+    Hll = jnp.zeros((L, 3, 3)).at[obs.l].add(ein("oab,oac->obc", Jl, Jl))
     Hpl = jnp.zeros((m, L, 6, 3)).at[obs.k, obs.l].add(
-        jnp.einsum("oab,oac->obc", Jp, Jl)
+        ein("oab,oac->obc", Jp, Jl)
     )
-    bp = jnp.zeros((m, 6)).at[obs.k].add(-jnp.einsum("oab,oa->ob", Jp, r))
-    bl = jnp.zeros((L, 3)).at[obs.l].add(-jnp.einsum("oab,oa->ob", Jl, r))
+    bp = jnp.zeros((m, 6)).at[obs.k].add(-ein("oab,oa->ob", Jp, r))
+    bl = jnp.zeros((L, 3)).at[obs.l].add(-ein("oab,oa->ob", Jl, r))
     cost = jnp.sum(r * r)
     return Hpp, bp, Hll, bl, Hpl, cost
 
@@ -228,8 +229,8 @@ def schur_reduce(Hpp, bp, Hll, bl, Hpl, damping: float = 1e-4):
     """Eliminate the landmark block: the reduced camera system.
 
     Returns (S (6M,6M), rhs (6M,), Hll_inv (L,3,3)); the classic
-    S = Hpp - Hpl Hll^-1 Hlp with the Hll inverse a batched 3x3 (MXU
-    work, never a big sparse solve).
+    S = Hpp - Hpl Hll^-1 Hlp with the Hll inverse a batched 3x3 (never
+    a big sparse solve).
     """
     m = Hpp.shape[0]
     eye3 = jnp.eye(3)
@@ -239,11 +240,11 @@ def schur_reduce(Hpp, bp, Hll, bl, Hpl, damping: float = 1e-4):
     Hll_inv = jnp.linalg.inv(Hll_d)  # (L,3,3) batched
 
     # S = Hpp - Hpl Hll^-1 Hlp  (assembled dense over the small pose block)
-    HplW = jnp.einsum("mlab,lbc->mlac", Hpl, Hll_inv)  # (M,L,6,3)
-    S_off = jnp.einsum("mlac,nlbc->mnab", HplW, Hpl)  # (M,M,6,6)
+    HplW = jnp.einsum("mlab,lbc->mlac", Hpl, Hll_inv, precision=_PREC)  # (M,L,6,3)
+    S_off = jnp.einsum("mlac,nlbc->mnab", HplW, Hpl, precision=_PREC)  # (M,M,6,6)
     S = -S_off
     S = S.at[jnp.arange(m), jnp.arange(m)].add(Hpp)
-    rhs = bp - jnp.einsum("mlac,lc->ma", HplW, bl)
+    rhs = bp - jnp.einsum("mlac,lc->ma", HplW, bl, precision=_PREC)
     S = S.transpose(0, 2, 1, 3).reshape(6 * m, 6 * m)
     return S, rhs.reshape(-1), Hll_inv
 
@@ -260,8 +261,8 @@ def _solve_reduced(S, rhs, m, damping, anchor):
 
 def _backsub_landmarks(Hll_inv, bl, Hpl, xi):
     """dl = Hll^-1 (bl - Hlp xi)."""
-    Hlp_xi = jnp.einsum("mlab,ma->lb", Hpl, xi)
-    dl = jnp.einsum("lab,lb->la", Hll_inv, bl - Hlp_xi)
+    Hlp_xi = jnp.einsum("mlab,ma->lb", Hpl, xi, precision=_PREC)
+    dl = jnp.einsum("lab,lb->la", Hll_inv, bl - Hlp_xi, precision=_PREC)
     return jnp.where(jnp.all(jnp.isfinite(dl)), dl, jnp.zeros_like(dl))
 
 

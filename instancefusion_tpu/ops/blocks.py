@@ -1,17 +1,16 @@
 """Sparse voxel-block TSDF map: directory + packed block payloads.
 
-TPU-native replacement for GPU voxel hashing (the BASELINE contract maps
+XLA-friendly replacement for GPU voxel hashing (the BASELINE contract maps
 the reference's dense-map storage to "sharded block tables" — SURVEY.md §3
 "Voxel hashing").  The classic CUDA design (Niessner-style bucketed hash
 with pointers and atomics) is hostile to XLA: dynamic shapes, pointer
-chasing, link lists.  The TPU-first design here:
+chasing, link lists.  The design here:
 
 - **Dense block directory** ``i32[Nb, Nb, Nb]``: block coordinate ->
   payload slot (or -1).  At 512^3 with 8^3 blocks this is 64^3 int32 =
-  1 MB — cheaper than any hash table and O(1) lookup by a plain gather
-  *from an argument* (constant-operand gathers poison this runtime).
+  1 MB — cheaper than any hash table and O(1) lookup by a plain gather.
 - **Packed payloads** ``f32[capacity, 512]``: one row per live block,
-  voxels flattened so the last dim is 512 = 4x128 lanes (VPU-aligned).
+  voxels flattened so the last dim is 512.
 - **Out-of-band SDF sentinel**: unobserved voxels store sdf = 2.0
   (outside the truncation-normalized [-1, 1]).  Trilinear validity is
   then `max(corner sdf) < 1.5` — the raycaster never gathers the weight
@@ -28,6 +27,7 @@ slot axis for multi-device maps.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import jax
@@ -40,6 +40,8 @@ from instancefusion_tpu.geometry.se3 import se3_inverse, transform_points
 
 # Unobserved-voxel SDF sentinel (stored sdf is in [-1, 1] once fused).
 UNOBSERVED = 2.0
+# Geometry matmuls run in full f32 (TF32 would put mm errors on rays at 4 m).
+_PREC = jax.lax.Precision.HIGHEST
 
 
 class BlockMap(NamedTuple):
@@ -52,12 +54,8 @@ class BlockMap(NamedTuple):
     sdf: jnp.ndarray  # f32[C, B^3] normalized to [-1,1]
     weight: jnp.ndarray  # f32[C, B^3]
     # Packed per-row color planes: [r | g | b] channel segments of B^3
-    # lanes each, f32[C, 3*B^3] (or [C, 0] when disabled).  Channel-
-    # segmented rows keep every per-channel access a contiguous lane
-    # slice, so the Pallas integrate/splat kernels read and update color
-    # in place with zero split/stack copies of the (hundreds of MB)
-    # payload per frame — the [C, B^3, 3] interleaved layout cost two
-    # full-payload reshuffles per frame at 512^3.
+    # voxels each, f32[C, 3*B^3] (or [C, 0] when disabled).  Channel-
+    # segmented rows keep every per-channel access a contiguous slice.
     color: jnp.ndarray  # f32[C, 3*B^3]
 
 
@@ -128,7 +126,7 @@ def touched_blocks_mask(
         depth = decimate(depth, stride)
     R = T_wc[:3, :3]
     o = T_wc[:3, 3]
-    dirs_w = rays.reshape(-1, 3) @ R.T  # unit-z dirs in world
+    dirs_w = jnp.matmul(rays.reshape(-1, 3), R.T, precision=_PREC)  # unit-z dirs in world
     valid = (depth > 0.0).reshape(-1)
     d = depth.reshape(-1)
 
@@ -207,10 +205,8 @@ def discover_allocate(
     """Allocate this frame's new band blocks without any directory-sized scatter.
 
     The mask-based path (`touched_blocks_mask` + `allocate_touched`)
-    scatters into — and cumsums over — the Nb^3 directory every frame;
-    XLA scatters on TPU serialize at ~10^8 elem/s, making that the
-    dominant map-bookkeeping cost (~12 ms/frame at 512^3).  This path
-    works on *lists* instead:
+    scatters into — and cumsums over — the Nb^3 directory every frame
+    (262k entries at 512^3).  This path works on *lists* instead:
 
     1. sample the measurement band (as `touched_blocks_mask`) into flat
        block ids, (samples * H/stride * W/stride,);
@@ -237,7 +233,7 @@ def discover_allocate(
         depth = decimate(depth, stride)
     R = T_wc[:3, :3]
     o = T_wc[:3, 3]
-    dirs_w = rays.reshape(-1, 3) @ R.T
+    dirs_w = jnp.matmul(rays.reshape(-1, 3), R.T, precision=_PREC)
     d = depth.reshape(-1)
     valid = d > 0.0
 
@@ -300,9 +296,8 @@ def compact_mask_indices(
     """Indices of set bits of `mask` (ascending), compacted to length k.
 
     Same contract as the `jax.lax.top_k(mask.astype(int32), k)` index
-    output this replaces, but via prefix-sum + bounded scatter: top_k at
-    k ~ 1024 is a k-deep partial sort (~3 ms/frame on TPU at 8k inputs on
-    the per-frame path); the cumsum + k-sized scatter is ~0.1 ms.
+    output this replaces, but via prefix-sum + bounded scatter instead of
+    a k-deep partial sort.
     Returns (idx i32[k], valid bool[k]); set bits beyond k are dropped
     (callers account overflow via sum(mask) vs k, as before).
     """
@@ -373,107 +368,8 @@ def frustum_slots(
     return compact_mask_indices(inview, k)
 
 
-def frustum_groups(
-    bm: BlockMap,
-    T_wc: jnp.ndarray,
-    intr: Intrinsics,
-    cfg: TsdfConfig,
-    near: float,
-    far: float,
-    kg: int,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """In-frustum payload ROW GROUPS: (gids i32[kg], row_valid bool[kg, 8]).
-
-    The group-indexed fast path (ops/pallas/tsdf.fused_integrate_groups /
-    raycast.splat_depth_groups): payload rows are addressed as groups of 8
-    consecutive slots, which Pallas kernels read/write directly through
-    data-dependent BlockSpec index maps — eliminating the XLA row
-    gather + scatter (~1 ms per plane per frame at 2048 rows) entirely.
-    Pad entries point at the RESERVED last group (never allocated — see
-    `reserved_slots`), so duplicate-visit hazards cannot occur.
-    """
-    c = bm.block_coords.shape[0]
-    inview = frustum_mask(bm, T_wc, intr, cfg, near, far)
-    by_group = inview.reshape(-1, 8)
-    gmask = jnp.any(by_group, axis=1)
-    gids, gvalid = compact_mask_indices(gmask, kg, fill=c // 8 - 1)
-    row_valid = by_group[gids] & gvalid[:, None]
-    return gids, row_valid
-
-
-def frustum_groups_binned(
-    bm: BlockMap,
-    T_wc: jnp.ndarray,
-    intr: Intrinsics,
-    cfg: TsdfConfig,
-    near: float,
-    far: float,
-    ks: int,
-    kl: int,
-    th_small: int = 64,
-    rmax: int = 8,
-) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """`frustum_groups` split by projected-window footprint.
-
-    The r3 profile's biggest remaining lever: both group kernels run a
-    fixed 128-row one-hot window while the median 512^3/VGA block
-    footprint is ~42 px — so groups whose every member block's projected
-    bbox (with the splat tent margin, the wider of the two kernels') fits
-    a `th_small`-row tile-aligned window go to the SMALL bin and run the
-    th=64 kernel variant at roughly half the matmul area; the rest
-    (near-camera blocks, camera-plane straddlers, clipped windows) go to
-    the LARGE bin with the full 128-row window.  Returns
-    (gids_s i32[ks], rv_s bool[ks,8], gids_l i32[kl], rv_l bool[kl,8]);
-    the two lists are disjoint and their union is `frustum_groups`'s.
-    """
-    c = bm.block_coords.shape[0]
-    hp = -(-intr.height // 8) * 8
-    inview = frustum_mask(bm, T_wc, intr, cfg, near, far)
-
-    # Per-slot projected v-extent, mirroring pallas.raycast.block_windows.
-    b = cfg.block_size
-    bsz = b * cfg.voxel_size
-    origin = jnp.asarray(cfg.origin, jnp.float32)
-    T_cw = se3_inverse(T_wc)
-    R, t = T_cw[:3, :3], T_cw[:3, 3]
-    corner = jnp.stack(
-        [jnp.array([i // 4, (i // 2) % 2, i % 2], jnp.float32) for i in range(8)]
-    )
-    coords = jnp.maximum(bm.block_coords, 0)
-    p_w = origin + (coords[:, None, :].astype(jnp.float32) + corner[None]) * bsz
-    p_c = p_w @ R.T + t  # (C, 8, 3)
-    z = p_c[..., 2]
-    z_min = jnp.min(z, axis=1)
-    zs = jnp.maximum(z, 1e-3)
-    v = intr.fy * p_c[..., 1] / zs + intr.cy
-    z_cen = jnp.mean(z, axis=1)
-    r_tent = jnp.clip(
-        0.7 * intr.fx * cfg.voxel_size / jnp.maximum(z_cen, 0.3),
-        1.0, float(rmax),
-    )
-    vmin = jnp.min(v, axis=1) - r_tent
-    vmax = jnp.max(v, axis=1) + r_tent
-    ths = min(th_small, hp)
-    v0 = jnp.clip(
-        (jnp.floor(vmin).astype(jnp.int32) // 8) * 8, 0, max(hp - ths, 0)
-    )
-    fits = (z_min > 1e-3) & (vmax <= (v0 + ths - 1).astype(jnp.float32))
-
-    by_group = inview.reshape(-1, 8)
-    # A group is small iff every in-view member fits the small window.
-    gsmall = jnp.all(jnp.logical_not(by_group) | fits.reshape(-1, 8), axis=1)
-    gmask = jnp.any(by_group, axis=1)
-    fill = c // 8 - 1  # the reserved pad group
-    gids_s, gv_s = compact_mask_indices(gmask & gsmall, ks, fill=fill)
-    gids_l, gv_l = compact_mask_indices(gmask & ~gsmall, kl, fill=fill)
-    rv_s = by_group[gids_s] & gv_s[:, None]
-    rv_l = by_group[gids_l] & gv_l[:, None]
-    return gids_s, rv_s, gids_l, rv_l
-
-
-# Payload slots reserved as the Pallas group-kernels' pad target: the last
-# group of 8 rows is never allocated, so pad grid steps that read/write it
-# can never race with a real update.
+# The last 8 payload slots are never allocated (the sharded engine's
+# migration and admission paths keep the same tail free).
 RESERVED_SLOTS = 8
 
 
@@ -525,6 +421,9 @@ def compact_touched_slots(
     return jnp.where(valid, slots, 0), valid
 
 
+# Jitted like `shard.integrate`, so that eager callers compile the frame
+# update once and both run the same fused arithmetic.
+@functools.partial(jax.jit, static_argnames=("intr", "cfg", "max_touched"))
 def integrate(
     bm: BlockMap,
     depth: jnp.ndarray,
@@ -562,36 +461,8 @@ def integrate_slots(
     """Fuse one frame into an explicit (already compacted) block list.
 
     Split out of `integrate` so the engine can share one touched-block
-    list between integration and the splat raycaster.
-
-    On TPU with cfg.use_pallas the whole update — including the per-voxel
-    depth/color image association — runs as ONE Pallas kernel with the
-    gather mapped onto the MXU (ops/pallas/tsdf.fused_integrate); the XLA
-    path below is its golden and the CPU fallback.
+    list between integration and prediction.
     """
-    if cfg.use_pallas and jax.default_backend() == "tpu":
-        from instancefusion_tpu.ops.pallas.tsdf import fused_integrate
-
-        frame_color = color if (color is not None and bm.color.size) else None
-        sdf_rows, w_rows, color_rows, out_slots = fused_integrate(
-            slots, valid, bm.block_coords, bm.sdf, bm.weight, bm.color,
-            depth, frame_color, T_wc, intr, cfg, color_gain=color_gain,
-        )
-        new = bm._replace(
-            sdf=bm.sdf.at[out_slots].set(sdf_rows, mode="drop"),
-            weight=bm.weight.at[out_slots].set(w_rows, mode="drop"),
-        )
-        if color_rows is not None:
-            new = new._replace(
-                color=bm.color.at[out_slots].set(color_rows, mode="drop")
-            )
-        return new
-
-    # (The Pallas path above skips blocks straddling the camera plane —
-    # their projected window is meaningless; this jnp golden keeps exact
-    # per-voxel semantics, matching the dense reference.  The divergence
-    # only affects blocks the camera is physically inside of, nearer than
-    # any sensor's depth_min.)
     b3 = cfg.block_size**3
     coords = bm.block_coords[slots]  # (K,3)
     local = _local_offsets(cfg)  # (B^3,3)
@@ -618,22 +489,6 @@ def integrate_slots(
     has_color = color is not None and bm.color.size
     out_slots = jnp.where(valid, slots, bm.sdf.shape[0])  # OOB -> dropped
 
-    if cfg.use_pallas and has_color:
-        # Fused read-modify-write of all payload planes in one pass
-        # (ops/pallas/tsdf.py); association gather above stays XLA.
-        from instancefusion_tpu.ops.pallas.tsdf import fused_tsdf_update
-
-        c_old = bm.color[slots]  # (K, 3*B^3) packed
-        c_obs = pack_color(color[vic, uic])
-        sdf_new, w_new, c_new = fused_tsdf_update(
-            sdf_old, w_old, c_old, psi, w_obs, c_obs,
-            cfg.max_weight, jax.default_backend() != "tpu", color_gain)
-        return bm._replace(
-            sdf=bm.sdf.at[out_slots].set(sdf_new, mode="drop"),
-            weight=bm.weight.at[out_slots].set(w_new, mode="drop"),
-            color=bm.color.at[out_slots].set(c_new, mode="drop"),
-        )
-
     w_new = w_old + w_obs
     denom = jnp.maximum(w_new, 1e-6)
     # Preserve the UNOBSERVED sentinel where nothing has ever been fused
@@ -648,8 +503,9 @@ def integrate_slots(
 
     new_color = bm.color
     if has_color:
-        # color_gain: color-cadence compensation (EngineConfig.color_every)
-        # — see ops/pallas/tsdf._update_kernel for the derivation.
+        # color_gain: color-cadence compensation (EngineConfig.color_every):
+        # an on-frame sample stands in for `color_every` frames, so its
+        # weight is scaled to keep the every-frame EMA time constant.
         c_old = bm.color[slots]  # (K, 3*B^3) packed
         c_obs = pack_color(color[vic, uic])
         w3 = jnp.tile(w_old, (1, 3))
@@ -658,129 +514,6 @@ def integrate_slots(
         new_color = bm.color.at[out_slots].set(c_new, mode="drop")
 
     return bm._replace(sdf=new_sdf, weight=new_w, color=new_color)
-
-
-def integrate_groups(
-    bm: BlockMap,
-    gids: jnp.ndarray,  # i32[KG] payload row groups (frustum_groups)
-    row_valid: jnp.ndarray,  # bool[KG, 8]
-    depth: jnp.ndarray,
-    color: jnp.ndarray | None,
-    T_wc: jnp.ndarray,
-    intr: Intrinsics,
-    cfg: TsdfConfig,
-    color_gain: float = 1.0,
-) -> BlockMap:
-    """Group-addressed fuse: payload planes updated IN PLACE (TPU path).
-
-    See ops/pallas/tsdf.fused_integrate_groups — eliminates the XLA row
-    gather/scatter of the slot-list path.  The CPU/golden fallback
-    flattens the groups to a slot list and reuses `integrate_slots`.
-    """
-    if cfg.use_pallas and jax.default_backend() == "tpu":
-        from instancefusion_tpu.ops.pallas.tsdf import fused_integrate_groups
-
-        frame_color = color if (color is not None and bm.color.size) else None
-        sdf, w, col = fused_integrate_groups(
-            gids, row_valid, bm.block_coords, bm.sdf, bm.weight, bm.color,
-            depth, frame_color, T_wc, intr, cfg, color_gain=color_gain,
-        )
-        return bm._replace(sdf=sdf, weight=w, color=col)
-    slots = (gids[:, None] * 8 + jnp.arange(8, dtype=jnp.int32)[None, :]).reshape(-1)
-    return integrate_slots(
-        bm, slots, row_valid.reshape(-1), depth, color, T_wc, intr, cfg,
-        color_gain=color_gain,
-    )
-
-
-def integrate_groups_binned(
-    bm: BlockMap,
-    bins,  # sequence of (gids i32[K], row_valid bool[K,8], th int)
-    depth: jnp.ndarray,
-    color: jnp.ndarray | None,
-    T_wc: jnp.ndarray,
-    intr: Intrinsics,
-    cfg: TsdfConfig,
-    color_gain: float = 1.0,
-) -> BlockMap:
-    """`integrate_groups` over footprint bins (frustum_groups_binned).
-
-    Bins are disjoint group sets, so the sequential in-place kernel calls
-    compose exactly; each runs at its own window height (TPU path — the
-    CPU/golden fallback inside integrate_groups flattens each bin).
-    """
-    for gids, row_valid, th in bins:
-        if cfg.use_pallas and jax.default_backend() == "tpu":
-            from instancefusion_tpu.ops.pallas.tsdf import fused_integrate_groups
-
-            frame_color = color if (color is not None and bm.color.size) else None
-            sdf, w, col = fused_integrate_groups(
-                gids, row_valid, bm.block_coords, bm.sdf, bm.weight,
-                bm.color, depth, frame_color, T_wc, intr, cfg,
-                color_gain=color_gain, th=th,
-            )
-            bm = bm._replace(sdf=sdf, weight=w, color=col)
-        else:
-            bm = integrate_groups(
-                bm, gids, row_valid, depth, color, T_wc, intr, cfg,
-                color_gain=color_gain,
-            )
-    return bm
-
-
-def raycast_splat_groups_binned(
-    bm: BlockMap,
-    T_wc: jnp.ndarray,
-    intr: Intrinsics,
-    tsdf_cfg: TsdfConfig,
-    bins,  # sequence of (gids, row_valid, th)
-    with_color: bool = True,
-    depth_prior: jnp.ndarray | None = None,
-    rmax: int = 8,
-):
-    """`raycast_splat_groups` over footprint bins (TPU only).
-
-    The splat kernel's six output planes are scatter-add accumulators,
-    so rendering disjoint bins separately and SUMMING the raw planes is
-    exactly the single-call result; normalization runs once at the end.
-    """
-    from instancefusion_tpu.ops.pallas.raycast import (
-        finish_splat_images, splat_depth_groups,
-    )
-    from instancefusion_tpu.ops.raycast import RaycastMaps
-
-    acc = None
-    for gids, row_valid, th in bins:
-        outs = splat_depth_groups(
-            gids, row_valid, bm.block_coords, bm.sdf, bm.weight, bm.color,
-            T_wc, intr, tsdf_cfg,
-            with_color=with_color and bool(bm.color.size),
-            depth_prior=depth_prior, rmax=rmax, th=th, raw=True,
-        )
-        acc = outs if acc is None else [a + o for a, o in zip(acc, outs)]
-    imgs = finish_splat_images(
-        acc, intr, tsdf_cfg,
-        with_color=with_color and bool(bm.color.size),
-        depth_prior=depth_prior,
-    )
-    rays_c = ray_directions(intr)  # unit-z
-    R = T_wc[:3, :3]
-    origin_w = T_wc[:3, 3]
-    dirs_z = (rays_c.reshape(-1, 3) @ R.T).reshape(rays_c.shape)
-    p_hit = origin_w + imgs.depth[..., None] * dirs_z
-    dirs_unit = dirs_z / jnp.maximum(
-        jnp.linalg.norm(dirs_z, axis=-1, keepdims=True), 1e-12
-    )
-    normal_w, nvalid = _image_space_normals(p_hit, imgs.valid, dirs_unit)
-    valid = imgs.valid & nvalid
-    zero3 = jnp.zeros_like(p_hit)
-    return RaycastMaps(
-        vertex_w=jnp.where(valid[..., None], p_hit, zero3),
-        normal_w=jnp.where(valid[..., None], normal_w, zero3),
-        depth=jnp.where(valid, imgs.depth, 0.0),
-        color=jnp.where(valid[..., None], imgs.color, 0.0),
-        valid=valid,
-    )
 
 
 def sample_trilinear(
@@ -946,8 +679,8 @@ def raycast(
     shapes static.
 
     Performance levers for the per-frame tracking prediction (random
-    gathers dominate this kernel on TPU — each trilinear sample is 16
-    gathers across 307 k rays):
+    gathers dominate this op — each trilinear sample is 8 directory and 8
+    payload gathers across 307 k rays):
 
     - ``depth_prior`` (f32[H,W], the depth just fused at this pose): the
       model surface along each valid-depth ray lies within the truncation
@@ -969,7 +702,9 @@ def raycast(
     ray_norm = jnp.linalg.norm(rays_c, axis=-1)
     R = T_wc[:3, :3]
     origin_w = T_wc[:3, 3]
-    dirs_w = (rays_c.reshape(-1, 3) @ R.T).reshape(rays_c.shape)
+    dirs_w = jnp.matmul(
+        rays_c.reshape(-1, 3), R.T, precision=_PREC
+    ).reshape(rays_c.shape)
     dirs_w = dirs_w / jnp.maximum(ray_norm[..., None], 1e-12)
 
     fine = cfg.step_scale * tsdf_cfg.trunc
@@ -1089,27 +824,17 @@ def raycast_splat(
     slots: jnp.ndarray,
     slot_valid: jnp.ndarray,
     with_color: bool = True,
-    interpret: bool = False,
     depth_prior: jnp.ndarray | None = None,
     rmax: int = 8,
 ):
-    """Predicted maps by MXU splatting of the listed blocks (zero gathers).
+    """Predicted maps by splatting the listed blocks (`ops/splat.py`).
 
-    TPU fast path for the per-frame tracking prediction: rasterizes the
-    touched blocks into composited depth/color images via the Pallas
-    kernel in `ops/pallas/raycast.py` (the TPU analog of the reference's
-    surfel splat pipeline), then finishes vertex/normal maps with dense
-    image math.  Same RaycastMaps contract as `raycast`; `raycast`
-    remains the golden reference and the offline/full-coverage renderer.
-
-    `interpret=True` (CPU) runs the jnp golden instead of Pallas
-    interpret mode, which is far too slow for per-frame use.
+    Same RaycastMaps contract as `raycast`, which stays the default
+    per-frame predictor and the offline/full-coverage renderer.
     """
-    from instancefusion_tpu.ops.pallas.raycast import splat_depth, splat_depth_ref
-    from instancefusion_tpu.ops.raycast import RaycastMaps
+    from instancefusion_tpu.ops.splat import splat_depth
 
-    impl = splat_depth_ref if interpret else splat_depth
-    imgs = impl(
+    imgs = splat_depth(
         slots,
         slot_valid,
         bm.block_coords,
@@ -1123,10 +848,23 @@ def raycast_splat(
         depth_prior=depth_prior,
         rmax=rmax,
     )
+    return splat_maps(imgs, T_wc, intr)
+
+
+def splat_maps(imgs, T_wc: jnp.ndarray, intr: Intrinsics):
+    """Composited splat images (ops/splat.SplatImages) -> RaycastMaps.
+
+    Vertices come from the composited z-depth along each pixel's ray;
+    normals from image-space differences of the hit vertices.
+    """
+    from instancefusion_tpu.ops.raycast import RaycastMaps
+
     rays_c = ray_directions(intr)  # unit-z
     R = T_wc[:3, :3]
     origin_w = T_wc[:3, 3]
-    dirs_z = (rays_c.reshape(-1, 3) @ R.T).reshape(rays_c.shape)
+    dirs_z = jnp.matmul(rays_c.reshape(-1, 3), R.T, precision=_PREC).reshape(
+        rays_c.shape
+    )
     p_hit = origin_w + imgs.depth[..., None] * dirs_z  # z-depth x unit-z dir
     dirs_unit = dirs_z / jnp.maximum(
         jnp.linalg.norm(dirs_z, axis=-1, keepdims=True), 1e-12
@@ -1293,62 +1031,6 @@ def admit_rows(
         )
         return bm_new, votes_new, fits, stamp.at[out].set(rs, mode="drop")
     return bm_new, votes_new, fits
-
-
-def raycast_splat_groups(
-    bm: BlockMap,
-    T_wc: jnp.ndarray,
-    intr: Intrinsics,
-    tsdf_cfg: TsdfConfig,
-    gids: jnp.ndarray,
-    row_valid: jnp.ndarray,
-    with_color: bool = True,
-    interpret: bool = False,
-    depth_prior: jnp.ndarray | None = None,
-    rmax: int = 8,
-):
-    """`raycast_splat` addressed by payload row groups (zero row gathers).
-
-    TPU fast path paired with `integrate_groups`; the CPU/golden fallback
-    flattens to a slot list and reuses the scatter-add golden.
-    """
-    from instancefusion_tpu.ops.raycast import RaycastMaps
-
-    if interpret:
-        slots = (
-            gids[:, None] * 8 + jnp.arange(8, dtype=jnp.int32)[None, :]
-        ).reshape(-1)
-        return raycast_splat(
-            bm, T_wc, intr, tsdf_cfg, slots, row_valid.reshape(-1),
-            with_color=with_color, interpret=True,
-            depth_prior=depth_prior, rmax=rmax,
-        )
-    from instancefusion_tpu.ops.pallas.raycast import splat_depth_groups
-
-    imgs = splat_depth_groups(
-        gids, row_valid, bm.block_coords, bm.sdf, bm.weight, bm.color,
-        T_wc, intr, tsdf_cfg,
-        with_color=with_color and bool(bm.color.size),
-        depth_prior=depth_prior, rmax=rmax,
-    )
-    rays_c = ray_directions(intr)  # unit-z
-    R = T_wc[:3, :3]
-    origin_w = T_wc[:3, 3]
-    dirs_z = (rays_c.reshape(-1, 3) @ R.T).reshape(rays_c.shape)
-    p_hit = origin_w + imgs.depth[..., None] * dirs_z
-    dirs_unit = dirs_z / jnp.maximum(
-        jnp.linalg.norm(dirs_z, axis=-1, keepdims=True), 1e-12
-    )
-    normal_w, nvalid = _image_space_normals(p_hit, imgs.valid, dirs_unit)
-    valid = imgs.valid & nvalid
-    zero3 = jnp.zeros_like(p_hit)
-    return RaycastMaps(
-        vertex_w=jnp.where(valid[..., None], p_hit, zero3),
-        normal_w=jnp.where(valid[..., None], normal_w, zero3),
-        depth=jnp.where(valid, imgs.depth, 0.0),
-        color=jnp.where(valid[..., None], imgs.color, 0.0),
-        valid=valid,
-    )
 
 
 def clean(

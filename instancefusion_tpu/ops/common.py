@@ -1,51 +1,18 @@
-"""Small shared op helpers (TPU lowering workarounds)."""
+"""Small shared op helpers."""
 
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
 
-
-def _sel_matrix(n: int, s: int) -> jnp.ndarray:
-    """One-hot row-selection matrix (n//s, n): row i picks element i*s."""
-    r = jax.lax.broadcasted_iota(jnp.int32, (n // s, n), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (n // s, n), 1)
-    return (c == r * s).astype(jnp.float32)
-
-
-def decimate(arr, s: int, force_matmul: bool = False):
+def decimate(arr, s: int):
     """`arr[::s, ::s]` over the two leading axes, cropped to full windows.
 
-    XLA lowers stride-s slices on TPU to dynamic gathers with bitpacked
-    index custom-calls (~0.5 ms per 640x480 map), and the reshape-and-
-    unit-slice rewrite still splits (8, 128)-tiled dims — a physical
-    shuffle.  On TPU the selection runs as two one-hot contractions on
-    the MXU instead (exact in f32: each output row/column touches exactly
-    one element, so no accumulation error), which is ~20x faster and
-    leaves results in canonical layout.  Trailing rows/cols that don't
-    fill a full stride window are cropped (floor-division shapes).
-
-    `force_matmul` runs the contraction path on any backend so CPU tests
-    cover the TPU math.
+    Trailing rows/cols that don't fill a full stride window are cropped
+    (floor-division shapes).
     """
     if s == 1:
         return arr
     h, w = arr.shape[:2]
     rest = arr.shape[2:]
     hs, ws = h // s, w // s
-    if not force_matmul and jax.default_backend() != "tpu":
-        arr = arr[: hs * s, : ws * s]
-        return arr.reshape((hs, s, ws, s) + rest)[:, 0, :, 0]
-    dt = arr.dtype
-    prec = jax.lax.Precision.HIGHEST
-    x = arr.astype(jnp.float32).reshape(h, -1)  # (h, w * prod(rest))
-    y = jax.lax.dot_general(
-        _sel_matrix(h, s), x, (((1,), (0,)), ((), ())), precision=prec
-    ).reshape(hs, w, -1)  # (hs, w, rest)
-    z = jax.lax.dot_general(
-        _sel_matrix(w, s), y, (((1,), (1,)), ((), ())), precision=prec
-    )  # (ws, hs, rest)
-    z = z.transpose(1, 0, 2).reshape((hs, ws) + rest)
-    if dt == jnp.bool_:
-        return z > 0.5
-    return z.astype(dt)
+    arr = arr[: hs * s, : ws * s]
+    return arr.reshape((hs, s, ws, s) + rest)[:, 0, :, 0]

@@ -1,20 +1,20 @@
 """Randomized-fern keyframe encoding for global loop-closure retrieval.
 
-TPU-native equivalent of the reference's fern keyframe database
+XLA-friendly equivalent of the reference's fern keyframe database
 (`Ferns::addFrame/findFrame`, expected `Core/src/Ferns.cpp` — SURVEY.md §3
 "Global loop closure").  The reference encodes a downsampled frame with F
 random binary tests (one pixel per fern, thresholds on r, g, b, d) and
 retrieves candidate keyframes by code dissimilarity.
 
-TPU-first differences:
+Differences:
 
 - Encoding is one vectorized gather from the (argument) frame at F fern
   pixel positions + a threshold compare — no per-fern loop.
 - The fern positions/thresholds are drawn once from a seeded PRNG and
-  carried in a `FernCoder` pytree that is *passed as an argument*
-  (closed-over constant tables poison this runtime's gather path).
+  carried in a `FernCoder` pytree that is *passed as an argument*.
 - Retrieval against the whole keyframe database is one (F,) vs (M, F)
-  broadcast compare + mean — O(M F) VPU work, no early-out heuristics.
+  broadcast compare + mean — O(M F) elementwise work, no early-out
+  heuristics.
 """
 
 from __future__ import annotations

@@ -3,10 +3,11 @@
 jnp reference implementation of the reference's hottest path —
 `RGBDOdometry::getIncrementalTransformation` with the CUDA `icpStep` /
 `rgbStep` kernels (expected `Core/src/RGBDOdometry.cpp`,
-`Core/src/Cuda/icp.cu` — SURVEY.md §4.3).  Key TPU-first differences:
+`Core/src/Cuda/icp.cu` — SURVEY.md §4.3).  Key differences:
 
 - The per-pixel 27-term reduction (upper-tri 6x6 JᵀJ + Jᵀr + stats) is one
-  (6, HW) x (HW, 6) matmul — MXU work, not a hand-rolled tree reduction.
+  (6, HW) x (HW, 6) matmul at HIGHEST precision, not a hand-rolled tree
+  reduction.
 - The reference round-trips the reduced system to the CPU every iteration
   to solve 6x6; here the entire level/iteration loop, including the solve
   and the `exp(xi)` update, stays on-device inside one `jit`
@@ -55,71 +56,38 @@ def associate(
     T_tgt_cw: jnp.ndarray,  # (4,4) world->camera of the prediction view
     intr: Intrinsics,
     cfg: IcpConfig,
-    tgt_depth: jnp.ndarray | None = None,  # (Ht,Wt) predicted z-depth
-    intr_kref: tuple | None = None,  # corner-conv (fx,fy,cx,cy) of target
     tgt_rgb=None,  # optional (intensity, gx, gy) target planes (Ht,Wt)
 ):
     """Projective data association: per source pixel, the target vertex /
     normal it corresponds to under the current pose estimate.
 
-    Returns (q_w (HW,3), n_t (HW,3), assoc_valid (HW,) bool).  The gather
-    is the expensive half of an ICP iteration on TPU; `track` re-associates
-    every `cfg.assoc_every` Gauss-Newton steps and reuses the pairs in
-    between (the reference re-associates every iteration — on a GPU the
-    `tex2D` gather is nearly free; on TPU the classic fixed-correspondence
-    inner loop is the hardware-appropriate schedule).
+    Returns (q_w (HW,3), n_t (HW,3), assoc_valid (HW,) bool).  `track`
+    re-associates every `cfg.assoc_every` Gauss-Newton steps and reuses
+    the pairs in between (the reference re-associates every iteration).
 
-    With `tgt_rgb` the photometric targets ride the SAME pass (one extra
-    window contraction in the Pallas kernel instead of 4 XLA flat
-    gathers) and the return gains (i_t, gx_t, gy_t, rgb_ok), each (HW,).
+    With `tgt_rgb` the photometric targets are gathered at the same
+    pixels and the return gains (i_t, gx_t, gy_t, rgb_ok), each (HW,).
     """
-    h, w = valid_src.shape
     p_w = transform_points(T_est_wc, vmap_src_c.reshape(-1, 3))
     p_tc = transform_points(T_tgt_cw, p_w)
     u, v, z = project(intr, p_tc)
-    # Round-half-up (ceil(x - 0.5)) — the same convention as the Pallas
-    # gather kernel's one-hot window (du in (-0.5, 0.5]), so both paths
-    # pick the identical target pixel at exact .5 boundaries.
+    # ceil(x - 0.5): a projection exactly halfway between two pixel
+    # centers picks the lower index (du in (-0.5, 0.5] from the center).
     ui = jnp.ceil(u - 0.5).astype(jnp.int32)
     vi = jnp.ceil(v - 0.5).astype(jnp.int32)
     in_img = (ui >= 0) & (ui < intr.width) & (vi >= 0) & (vi < intr.height)
     sel_flat = valid_src.reshape(-1) & in_img & (z > 0.0)
-    if (
-        cfg.use_pallas
-        and tgt_depth is not None
-        and jax.default_backend() == "tpu"
-    ):
-        # Association gather on the MXU (factored one-hot windows) — the
-        # dominant ICP cost as per-lane gathers (ops/pallas/icp.py).
-        # Gathers target depth + normals only; the target vertex is
-        # reconstructed from the depth in-kernel (see _gather_kernel).
-        from instancefusion_tpu.ops.pallas.icp import gather_target_maps
-
-        if intr_kref is None:
-            intr_kref = (intr.fx, intr.fy, intr.cx, intr.cy)
-        out = gather_target_maps(
-            u.reshape(h, w), v.reshape(h, w), sel_flat.reshape(h, w),
-            tgt_depth, tgt_normal_w, se3_inverse(T_tgt_cw), intr_kref,
-            tgt_rgb=tgt_rgb,
-        )
-        q_w = out[0].reshape(-1, 3)
-        n_t = out[1].reshape(-1, 3)
-        assoc_valid = out[2].reshape(-1)
-        if tgt_rgb is not None:
-            i_t, gx_t, gy_t = (p.reshape(-1) for p in out[3])
-            return q_w, n_t, assoc_valid, (i_t, gx_t, gy_t, assoc_valid)
-    else:
-        uic = jnp.clip(ui, 0, intr.width - 1)
-        vic = jnp.clip(vi, 0, intr.height - 1)
-        flat = vic * intr.width + uic
-        q_w = tgt_vertex_w.reshape(-1, 3)[flat]
-        n_t = tgt_normal_w.reshape(-1, 3)[flat]
-        assoc_valid = tgt_valid.reshape(-1)[flat] & sel_flat
-        if tgt_rgb is not None:
-            i_t = tgt_rgb[0].reshape(-1)[flat]
-            gx_t = tgt_rgb[1].reshape(-1)[flat]
-            gy_t = tgt_rgb[2].reshape(-1)[flat]
-            return q_w, n_t, assoc_valid, (i_t, gx_t, gy_t, assoc_valid)
+    uic = jnp.clip(ui, 0, intr.width - 1)
+    vic = jnp.clip(vi, 0, intr.height - 1)
+    flat = vic * intr.width + uic
+    q_w = tgt_vertex_w.reshape(-1, 3)[flat]
+    n_t = tgt_normal_w.reshape(-1, 3)[flat]
+    assoc_valid = tgt_valid.reshape(-1)[flat] & sel_flat
+    if tgt_rgb is not None:
+        i_t = tgt_rgb[0].reshape(-1)[flat]
+        gx_t = tgt_rgb[1].reshape(-1)[flat]
+        gy_t = tgt_rgb[2].reshape(-1)[flat]
+        return q_w, n_t, assoc_valid, (i_t, gx_t, gy_t, assoc_valid)
     return q_w, n_t, assoc_valid
 
 
@@ -152,15 +120,6 @@ def reduce_equations(
         & (n_dot > cfg.angle_thresh)
     )
     m = mask.astype(jnp.float32)
-    if cfg.use_pallas:
-        # Fused residual/jacobian/weighting/29-term reduction in one HBM
-        # pass (ops/pallas/icp.py); Huber weights computed in-kernel.
-        from instancefusion_tpu.ops.pallas.icp import reduce_normal_equations
-
-        return reduce_normal_equations(
-            p_w, n_t, q_w, m, huber_delta=cfg.huber_delta,
-            interpret=jax.default_backend() != "tpu",
-        )
     r = jnp.sum(n_t * diff, axis=-1)  # point-to-plane residual
     J = jnp.concatenate([n_t, jnp.cross(p_w, n_t)], axis=-1)  # (HW, 6)
     # IRLS: H = sum w J Jt, b = -sum w J r (w = gate x Huber weight).
@@ -171,7 +130,7 @@ def reduce_equations(
     else:
         w = m
     Jm = J * jnp.sqrt(w)[:, None]
-    # The "27-float reduction": one small matmul on the MXU.
+    # The "27-float reduction": one small f32 matmul.
     H6 = jnp.matmul(Jm.T, Jm, precision=_PREC)
     b6 = -jnp.matmul(J.T, (r * w)[:, None], precision=_PREC)[:, 0]
     inliers = jnp.sum(m)
@@ -232,7 +191,7 @@ def reduce_rgb_equations(
     """Photometric GN system on FIXED gathered targets: r = I_t - I_src.
 
     Jacobian chain: dI/d(u,v) x d(u,v)/dp_c x dp_c/dxi, recomputed per
-    pose; everything elementwise + one MXU matmul, zero gathers.
+    pose; everything elementwise + one f32 matmul, zero gathers.
     """
     p_w = transform_points(T_est_wc, vmap_src_c.reshape(-1, 3))
     p_tc = transform_points(T_tgt_cw, p_w)
@@ -278,7 +237,6 @@ def track(
     intr: Intrinsics,
     cfg: IcpConfig,
     pred_intensity: jnp.ndarray | None = None,
-    pred_depth: jnp.ndarray | None = None,  # full-res predicted z-depth
 ) -> TrackResult:
     """Coarse-to-fine projective ICP against the predicted model view."""
     T_pred_cw = se3_inverse(T_pred_wc)
@@ -292,12 +250,6 @@ def track(
         intr_l = intr.level(lvl)
         tv, tn, tval = _subsample_maps(pred_vertex_w, pred_normal_w, pred_valid, lvl)
         s_l = 1 << lvl
-        td = decimate(pred_depth, s_l) if pred_depth is not None else None
-        # Corner-convention intrinsics of the DECIMATED target: decimated
-        # pixel j holds full-res pixel j*s, so its true ray is
-        # K_full^-1 [j*s, i*s, 1] = ((j - cx/s) / (fx/s), ...).  Used only
-        # by the in-kernel vertex reconstruction (see associate).
-        intr_k = (intr.fx / s_l, intr.fy / s_l, intr.cx / s_l, intr.cy / s_l)
         if use_rgb:
             ti = decimate(pred_intensity, s_l)
             ti_gx, ti_gy = intensity_gradients(ti)
@@ -330,64 +282,22 @@ def track(
             T_new = jnp.matmul(se3_exp(xi), T, precision=_PREC)
             return T_new, nin, rsum, q_w, n_t, a_ok, rgb_fix
 
-        # Whole-inner-loop fusion (TPU): the fixed-correspondence GN
-        # steps — linearization (geometric + photometric), 29-term
-        # reduction, damped 6x6 Cholesky, exp(xi) pose update — run
-        # inside ONE Pallas launch with the pose in SMEM
-        # (ops/pallas/icp.py gn_iterations), replacing ~20 small XLA ops
-        # per step.
-        use_fused_inner = cfg.use_pallas and jax.default_backend() == "tpu"
-
         def outer_body(_, carry):
             T, nin, rsum = carry
             if use_rgb:
                 # One association pass gathers the geometric AND
-                # photometric targets (the rgb planes ride the same
-                # one-hot contraction in the Pallas kernel — 4 extra XLA
-                # flat gathers per round cost 5x the whole track call).
+                # photometric targets.
                 q_w, n_t, a_ok, rgb_fix = associate(
                     src["vmap"], src["valid"], tv, tn, tval,
                     T, T_pred_cw, intr_l, cfg,
-                    tgt_depth=td, intr_kref=intr_k,
                     tgt_rgb=(ti, ti_gx, ti_gy),
                 )
             else:
                 q_w, n_t, a_ok = associate(
                     src["vmap"], src["valid"], tv, tn, tval,
                     T, T_pred_cw, intr_l, cfg,
-                    tgt_depth=td, intr_kref=intr_k,
                 )
                 rgb_fix = None
-            if use_fused_inner:
-                from instancefusion_tpu.ops.pallas.icp import gn_iterations
-
-                gate = (
-                    src["valid"].reshape(-1) & a_ok
-                ).astype(jnp.float32)
-                rgb_kw = {}
-                if use_rgb:
-                    i_t, gx_t, gy_t, rgb_ok = rgb_fix
-                    rgb_kw = dict(
-                        rgb=(
-                            src["intensity"].reshape(-1), i_t, gx_t, gy_t,
-                            rgb_ok.astype(jnp.float32),
-                        ),
-                        T_pred_cw=T_pred_cw,
-                        rgb_intr=(intr_l.fx, intr_l.fy),
-                        rgb_weight=cfg.rgb_weight,
-                    )
-                T, nin, rsum = gn_iterations(
-                    src["vmap"].reshape(-1, 3), src["nmap"].reshape(-1, 3),
-                    q_w, n_t, gate, T,
-                    inner_n=inner_n,
-                    dist_thresh=cfg.dist_thresh,
-                    angle_thresh=cfg.angle_thresh,
-                    huber_delta=cfg.huber_delta,
-                    damping=cfg.damping,
-                    min_valid=cfg.min_valid,
-                    **rgb_kw,
-                )
-                return T, nin, rsum
             T, nin, rsum, _, _, _, _ = jax.lax.fori_loop(
                 0, inner_n,
                 inner_body,
@@ -409,8 +319,8 @@ def track(
         carry = (T, jnp.zeros(()), jnp.zeros(()))
         if outer_n <= 8:
             # Unroll short static outer loops: a While op pays a carry
-            # copy + loop bookkeeping per step (~0.2 ms/level/frame at
-            # VGA) that straight-line code does not.
+            # copy + loop bookkeeping per step that straight-line code
+            # does not.
             for _ in range(outer_n):
                 carry = outer_body(0, carry)
             T, inliers, res_sum = carry

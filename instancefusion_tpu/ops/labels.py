@@ -1,6 +1,6 @@
 """Per-voxel instance-label fusion over the block map.
 
-TPU-native equivalent of the reference's per-surfel instance labels with
+XLA-friendly equivalent of the reference's per-surfel instance labels with
 probabilistic/voting fusion and CUDA label-update kernels (SURVEY.md §3
 "Instance fusion / label map", §4.5).  Instead of a per-surfel probability
 vector (O(max_instances) memory per element), each voxel keeps a
@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from instancefusion_tpu.config import TsdfConfig
@@ -66,6 +65,23 @@ def relabel_votes(
     return votes._replace(label=label)
 
 
+def vote_update(
+    lab: jnp.ndarray,  # i32[...] current labels
+    cnt: jnp.ndarray,  # f32[...] current counters
+    gid: jnp.ndarray,  # i32[...] observed instance ids
+    obs: jnp.ndarray,  # bool[...] voxel observed this frame
+) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """One Boyer-Moore majority step (module docstring), elementwise."""
+    adopt = obs & (cnt <= 0.0)
+    same = obs & (lab == gid) & ~adopt
+    other = obs & ~adopt & ~same
+    lab_new = jnp.where(adopt, gid, lab)
+    cnt_new = jnp.where(
+        adopt, 1.0, jnp.where(same, cnt + 1.0, jnp.where(other, cnt - 1.0, cnt))
+    )
+    return lab_new, cnt_new
+
+
 def fuse(
     votes: LabelVotes,
     bm: blk.BlockMap,
@@ -105,22 +121,9 @@ def fuse(
     near_surface = jnp.abs(d - z) < cfg.trunc
     obs = in_img & (z > 0.0) & (d > 0.0) & near_surface & (gid >= 0) & valid[:, None]
 
-    lab = votes.label[slots]
-    cnt = votes.count[slots]
-    if cfg.use_pallas:
-        from instancefusion_tpu.ops.pallas.tsdf import fused_label_vote
-
-        lab_new, cnt_new = fused_label_vote(
-            lab, cnt, gid, obs.astype(jnp.float32), interpret=jax.default_backend() != "tpu")
-    else:
-        adopt = obs & (cnt <= 0.0)
-        same = obs & (lab == gid) & ~adopt
-        other = obs & ~adopt & ~same
-        lab_new = jnp.where(adopt, gid, lab)
-        cnt_new = jnp.where(
-            adopt, 1.0, jnp.where(same, cnt + 1.0, jnp.where(other, cnt - 1.0, cnt))
-        )
-
+    lab_new, cnt_new = vote_update(
+        votes.label[slots], votes.count[slots], gid, obs
+    )
     out_slots = jnp.where(valid, slots, votes.label.shape[0])
     return LabelVotes(
         label=votes.label.at[out_slots].set(lab_new, mode="drop"),

@@ -1,18 +1,15 @@
 """Frame preprocessing: bilateral filter, vertex/normal maps, pyramids.
 
-jnp reference implementation of the reference's CUDA preprocessing kernels
+Plain jnp version of the reference's CUDA preprocessing kernels
 (`computeBilateralFilter`, `createVMap`, `createNMap`, `pyrDown*` in the
 expected `Core/src/Cuda/cudafuncs.cu` — SURVEY.md §3 "Frame preprocessing").
-The Pallas fused single-pass version lives in
-`instancefusion_tpu.ops.pallas.preprocess`; this module is the golden
-reference it is tested against, and the fallback on CPU.
+The 5x5 stencil is bandwidth-bound; XLA fuses it on every backend.
 
 Invalid depth is encoded as 0 (TUM convention); all ops propagate validity.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from instancefusion_tpu.config import PreprocessConfig
@@ -120,31 +117,14 @@ def build_frame_pyramid(
     Returns a list over levels (fine -> coarse) of dicts with keys
     'depth', 'vmap', 'nmap', 'valid', optionally 'intensity'.
 
-    With cfg.use_pallas the level-0 clamp/bilateral/vmap/nmap run as ONE
-    fused Pallas pass (ops/pallas/preprocess.py); coarser levels are tiny
-    and stay jnp.
     """
-    fused0 = None
-    if cfg.use_pallas:
-        from instancefusion_tpu.ops.pallas.preprocess import fused_preprocess
-
-        df, vmap0, nmap0, valid0 = fused_preprocess(depth, intr, cfg, interpret=jax.default_backend() != "tpu")
-        fused0 = {"vmap": vmap0, "nmap": nmap0, "valid": valid0 & (df > 0.0)}
-        depth = df
-    else:
-        depth = clamp_depth(depth, cfg)
-        depth = bilateral_filter(depth, cfg)
+    d = bilateral_filter(clamp_depth(depth, cfg), cfg)
     out = []
-    d = depth
     i = intensity
     for lvl in range(levels):
         il = intr.level(lvl)
-        if lvl == 0 and fused0 is not None:
-            vmap, nmap = fused0["vmap"], fused0["nmap"]
-            nvalid = fused0["valid"]
-        else:
-            vmap = backproject(il, d)
-            nmap, nvalid = compute_normals(vmap)
+        vmap = backproject(il, d)
+        nmap, nvalid = compute_normals(vmap)
         entry = {
             "depth": d,
             "vmap": vmap,

@@ -7,8 +7,8 @@ camera rays through the TSDF and extract the zero crossing
 (KinectFusion-style), which supplies the frame-to-model ICP target maps
 and the data-association maps for instance fusion.
 
-The Pallas version lives in `ops/pallas/raycast.py`; this is its golden
-reference and the CPU fallback.
+This is the dense-volume march; `ops/blocks.raycast` is the block-map
+version the per-frame engine runs.
 """
 
 from __future__ import annotations
@@ -56,7 +56,9 @@ def raycast(
     ray_norm = jnp.linalg.norm(rays_c, axis=-1)  # |dir| per pixel
     R = T_wc[:3, :3]
     origin_w = T_wc[:3, 3]
-    dirs_w = (rays_c.reshape(-1, 3) @ R.T).reshape(rays_c.shape)
+    dirs_w = jnp.matmul(
+        rays_c.reshape(-1, 3), R.T, precision=jax.lax.Precision.HIGHEST
+    ).reshape(rays_c.shape)
     dirs_w = dirs_w / jnp.maximum(ray_norm[..., None], 1e-12)  # unit length
 
     step = cfg.step_scale * tsdf_cfg.trunc

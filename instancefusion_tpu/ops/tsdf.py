@@ -4,9 +4,8 @@ jnp reference implementation of the volumetric map.  The reference system
 keeps a *surfel* map fused via GLSL transform feedback
 (`Core/src/GlobalModel.cpp` + `Shaders/` — expected layout, SURVEY.md §3);
 the BASELINE.json contract replaces it with a KinectFusion-style TSDF
-volume integrated and raycast by Pallas kernels.  This module is the dense
-(config-1, 128^3) variant and the golden reference for the Pallas and
-block-sparse versions.
+volume.  This module is the dense (config-1, 128^3) variant and the
+golden reference for the block-sparse version (ops/blocks.py).
 
 Layout: `sdf`, `weight` are `f32[N, N, N]` indexed `[ix, iy, iz]`; voxel
 center world position is `origin + (idx + 0.5) * voxel_size`.  `color` is

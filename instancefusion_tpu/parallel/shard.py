@@ -26,11 +26,11 @@ voxel blocks sharded across devices/hosts.  Design:
   cross-shard ray hand-off state machine).
 - **BA reduction**: edge/observation sets shard over the same axis; the
   pure-sum partials from ops/ba.py `psum` into the replicated reduced
-  system (the "distributed Schur-complement reduction over ICI").
+  system (the distributed Schur-complement reduction).
 
-Everything is `shard_map` over the mesh from parallel/mesh.py; the same
-code runs on a CPU test mesh (xla_force_host_platform_device_count) and a
-pod slice (`jax.distributed.initialize` + ICI/DCN collectives).
+Everything is `shard_map` over the 1-D mesh from parallel/mesh.py; the
+same code runs on a CPU test mesh (xla_force_host_platform_device_count)
+and on the GPUs of one host (NCCL collectives).
 """
 
 from __future__ import annotations
@@ -48,6 +48,8 @@ from instancefusion_tpu.config import TsdfConfig
 from instancefusion_tpu.geometry.camera import Intrinsics
 from instancefusion_tpu.ops import ba, blocks as blk
 from instancefusion_tpu.parallel.mesh import SHARD_AXIS
+
+_PREC = jax.lax.Precision.HIGHEST
 
 
 class ShardedBlockMap(NamedTuple):
@@ -116,26 +118,12 @@ def _slab_of(bx: jnp.ndarray, cuts: jnp.ndarray) -> jnp.ndarray:
     """Owner shard of block x-coord `bx` under the slab partition `cuts`.
 
     cuts is tiny (S-1 entries) and ascending, so ownership is a sum of
-    elementwise compares — no gather (the searchsorted analog that stays
-    off the TPU gather path).
+    elementwise compares — no gather (a searchsorted analog).
     """
     if cuts.shape[0] == 0:
         return jnp.zeros_like(bx)
     return jnp.sum(
         (bx[..., None] >= cuts[(None,) * bx.ndim]).astype(jnp.int32), axis=-1
-    )
-
-
-def _local_map(bm_local, directory) -> blk.BlockMap:
-    """Adapter: shard-local rows as a plain BlockMap for blocks.* reuse."""
-    return blk.BlockMap(
-        directory=directory,
-        block_coords=bm_local.block_coords,
-        n_active=bm_local.n_active,
-        overflow=bm_local.overflow,
-        sdf=bm_local.sdf,
-        weight=bm_local.weight,
-        color=bm_local.color,
     )
 
 
@@ -230,6 +218,11 @@ def _integrate_shard(
     return dir_new.reshape(directory.shape), coords_l, n_active_l, overflow_l, sdf_l, w_l, col_l
 
 
+# Jitted so that eager callers (tests, tools) compile each configuration
+# once; inside the engine's jitted step this is inlined.
+@functools.partial(
+    jax.jit, static_argnames=("mesh", "intr", "cfg", "max_touched")
+)
 def integrate(
     bm: ShardedBlockMap,
     depth: jnp.ndarray,
@@ -348,11 +341,16 @@ def _halo_exchange(
 
 
 def _raycast_shard(
-    directory, coords_l, sdf_l, w_l, col_l, cuts, T_wc,
+    directory, coords_l, sdf_l, w_l, col_l, cuts, T_wc, prior,
     *, intr: Intrinsics, tsdf_cfg: TsdfConfig, rc_cfg, num_shards: int,
-    halo_cap: int, with_color: bool,
+    halo_cap: int, with_color: bool, screen_space_normals: bool,
 ):
-    """Per-shard raycast over (my slab + halo), then pmin composite."""
+    """Per-shard raycast over (my slab + halo), then pmin composite.
+
+    `prior` and `screen_space_normals` are `blocks.raycast`'s per-frame
+    fast paths (prior None = full sweep); image-space normals are taken per
+    shard, so pixels next to a surface another shard owns lose validity.
+    """
     sid = jax.lax.axis_index(SHARD_AXIS)
     nb = blk.num_blocks_per_axis(tsdf_cfg)
     cl = sdf_l.shape[0]
@@ -385,7 +383,8 @@ def _raycast_shard(
         else col_l,
     )
     maps = blk.raycast(
-        local_bm, T_wc, intr, tsdf_cfg, rc_cfg, with_color=with_color
+        local_bm, T_wc, intr, tsdf_cfg, rc_cfg, with_color=with_color,
+        depth_prior=prior, screen_space_normals=screen_space_normals,
     )
 
     # psum-min composite: the shard whose slab contains the first surface
@@ -412,6 +411,11 @@ def _raycast_shard(
     )
 
 
+@functools.partial(
+    jax.jit,
+    static_argnames=("mesh", "intr", "tsdf_cfg", "rc_cfg", "halo_cap",
+                     "with_color", "screen_space_normals"),
+)
 def raycast(
     bm: ShardedBlockMap,
     T_wc: jnp.ndarray,
@@ -421,7 +425,11 @@ def raycast(
     rc_cfg,
     halo_cap: int = 1024,
     with_color: bool = True,
+    depth_prior: jnp.ndarray | None = None,
+    screen_space_normals: bool = False,
 ):
+    """Marched prediction of the sharded map (`blocks.raycast` semantics:
+    `depth_prior` and `screen_space_normals` as there)."""
     num_shards = mesh.shape[SHARD_AXIS]
     nb = blk.num_blocks_per_axis(tsdf_cfg)
     # A slab boundary layer holds at most nb^2 blocks.
@@ -430,18 +438,19 @@ def raycast(
         functools.partial(
             _raycast_shard, intr=intr, tsdf_cfg=tsdf_cfg, rc_cfg=rc_cfg,
             num_shards=num_shards, halo_cap=halo_cap, with_color=with_color,
+            screen_space_normals=screen_space_normals,
         ),
         mesh=mesh,
         in_specs=(
             P(), P(SHARD_AXIS), P(SHARD_AXIS), P(SHARD_AXIS), P(SHARD_AXIS),
-            P(), P(),
+            P(), P(), P(),
         ),
         out_specs=P(),
         check_vma=False,
     )
     return fn(
         bm.directory, bm.block_coords, bm.sdf, bm.weight, bm.color,
-        bm.cuts, T_wc,
+        bm.cuts, T_wc, depth_prior,
     )
 
 
@@ -482,7 +491,7 @@ def _alloc_from_band(
         depth_s = depth
     R = T_wc[:3, :3]
     o = T_wc[:3, 3]
-    dirs_w = rays.reshape(-1, 3) @ R.T
+    dirs_w = jnp.matmul(rays.reshape(-1, 3), R.T, precision=_PREC)
     d = depth_s.reshape(-1)
     valid = d > 0.0
     band = cfg.trunc + cfg.voxel_size
@@ -516,9 +525,8 @@ def _alloc_from_band(
         mine = uniq & (owner == sh)
         order = jnp.cumsum(mine.astype(jnp.int32)) - 1
         lslot = n_active_vec[sh] + order
-        # Each shard's LAST group of rows stays unallocated: it is the
-        # Pallas group-kernels' pad target (blocks.RESERVED_SLOTS), so
-        # pad grid steps can never alias a live block.
+        # Each shard's LAST group of rows stays unallocated
+        # (blocks.RESERVED_SLOTS).
         fits = mine & (lslot < cl - blk.RESERVED_SLOTS)
         gslot = sh * cl + lslot
         dir_ids = jnp.where(fits, top, nb3)  # OOB -> dropped
@@ -541,29 +549,21 @@ def _fused_step_shard(
     k_local: int, alloc_cap: int, with_color: bool, pred_color: bool,
     color_gain: float,
 ):
-    """Per-shard fast-path body: allocate -> integrate own rows -> splat.
+    """Per-shard splat-path body: allocate -> integrate own rows -> splat.
 
-    The single-chip fast paths running inside the shard bodies, with the
-    SAME group-addressed in-place Pallas kernels the single-chip engine
-    runs (engine/slam._splat_map_update): on TPU the shard's in-frustum
-    payload ROW GROUPS stream through data-dependent BlockSpec index maps
-    (blocks.frustum_groups -> integrate_groups -> splat_depth_groups) —
-    zero XLA row gathers/scatters; elsewhere the slot-list jnp goldens
-    run.  Per-shard work is proportional to the shard's OWN in-frustum
-    block count (pad grid steps skip via the u0 = -1 sentinel).
+    The single-chip splat path (engine/slam._splat_map_update) running
+    inside the shard bodies: per-shard work is proportional to the shard's
+    OWN in-frustum block count.
 
     Compositing is EXACT: the splat outputs are scatter-add accumulator
     planes and shards own disjoint row sets, so one psum of the raw
     planes followed by a single replicated normalization
-    (finish_splat_images) reproduces the single-chip image bit-for-bit
-    in f32 association order — no pmin depth-winner heuristic at seams.
+    (finish_splat_images) reproduces the single-chip image up to f32
+    summation order — no pmin depth-winner heuristic at seams.
     """
-    from instancefusion_tpu.ops.pallas.raycast import (
-        finish_splat_images, splat_depth_groups, splat_depth_ref,
-    )
+    from instancefusion_tpu.ops.splat import finish_splat_images, splat_depth
 
     sid = jax.lax.axis_index(SHARD_AXIS)
-    cl = sdf_l.shape[0]
 
     directory, coords_l, n_active_vec, overflow_vec = _alloc_from_band(
         directory, coords_l, n_active_vec, overflow_vec, cuts, depth, T_wc,
@@ -580,48 +580,21 @@ def _fused_step_shard(
         color=col_l,
     )
     want_color = pred_color and bool(col_l.shape[1])
-    if cfg.use_pallas and jax.default_backend() == "tpu":
-        # Group-addressed kernels over my own rows (in-place payload
-        # update; camera may dwell entirely in one slab, so the per-shard
-        # group capacity is not divided by the shard count).
-        kg = min(cfg.group_capacity, cl // 8)
-        gids, row_valid = blk.frustum_groups(
-            local_bm, T_wc, intr, cfg, rc_cfg.near, rc_cfg.far, kg
-        )
-        local_bm = blk.integrate_groups(
-            local_bm, gids, row_valid, depth,
-            color if with_color else None, T_wc, intr, cfg,
-            color_gain=color_gain,
-        )
-        raw = splat_depth_groups(
-            gids, row_valid, coords_l,
-            local_bm.sdf, local_bm.weight, local_bm.color,
-            T_wc, intr, cfg, with_color=want_color,
-            rmax=rc_cfg.splat_rmax, raw=True,
-        )
-    else:
-        inview = blk.frustum_mask(
-            local_bm, T_wc, intr, cfg, rc_cfg.near, rc_cfg.far
-        )
-        lslots, lvalid = blk.compact_mask_indices(inview, k_local)
-        local_bm = blk.integrate_slots(
-            local_bm, lslots, lvalid, depth,
-            color if with_color else None, T_wc, intr, cfg,
-            color_gain=color_gain,
-        )
-        from instancefusion_tpu.ops.pallas.raycast import splat_depth
-
-        impl = (
-            splat_depth
-            if jax.default_backend() == "tpu"
-            else splat_depth_ref
-        )
-        raw = impl(
-            lslots, lvalid, coords_l,
-            local_bm.sdf, local_bm.weight, local_bm.color,
-            T_wc, intr, cfg, with_color=want_color,
-            rmax=rc_cfg.splat_rmax, raw=True,
-        )
+    inview = blk.frustum_mask(
+        local_bm, T_wc, intr, cfg, rc_cfg.near, rc_cfg.far
+    )
+    lslots, lvalid = blk.compact_mask_indices(inview, k_local)
+    local_bm = blk.integrate_slots(
+        local_bm, lslots, lvalid, depth,
+        color if with_color else None, T_wc, intr, cfg,
+        color_gain=color_gain,
+    )
+    raw = splat_depth(
+        lslots, lvalid, coords_l,
+        local_bm.sdf, local_bm.weight, local_bm.color,
+        T_wc, intr, cfg, with_color=want_color,
+        rmax=rc_cfg.splat_rmax, raw=True,
+    )
 
     # Exact composite: psum the disjoint shards' raw accumulator planes,
     # normalize once; then finish vertex/normal maps replicated —
@@ -630,29 +603,7 @@ def _fused_step_shard(
     imgs = finish_splat_images(
         raw_sum, intr, cfg, with_color=want_color, depth_prior=prior
     )
-    depth_c, valid_c, color_c = imgs.depth, imgs.valid, imgs.color
-
-    from instancefusion_tpu.geometry.camera import ray_directions
-    from instancefusion_tpu.ops.raycast import RaycastMaps
-
-    rays_c = ray_directions(intr)  # unit-z
-    R = T_wc[:3, :3]
-    origin_w = T_wc[:3, 3]
-    dirs_z = (rays_c.reshape(-1, 3) @ R.T).reshape(rays_c.shape)
-    p_hit = origin_w + depth_c[..., None] * dirs_z
-    dirs_unit = dirs_z / jnp.maximum(
-        jnp.linalg.norm(dirs_z, axis=-1, keepdims=True), 1e-12
-    )
-    normal_w, nvalid = blk._image_space_normals(p_hit, valid_c, dirs_unit)
-    valid = valid_c & nvalid
-    zero3 = jnp.zeros_like(p_hit)
-    maps = RaycastMaps(
-        vertex_w=jnp.where(valid[..., None], p_hit, zero3),
-        normal_w=jnp.where(valid[..., None], normal_w, zero3),
-        depth=jnp.where(valid, depth_c, 0.0),
-        color=jnp.where(valid[..., None], color_c, 0.0),
-        valid=valid,
-    )
+    maps = blk.splat_maps(imgs, T_wc, intr)
     return (
         directory, coords_l, n_active_vec, overflow_vec,
         local_bm.sdf, local_bm.weight, local_bm.color,
@@ -675,11 +626,10 @@ def fused_step_map(
     alloc_cap: int = 4096,
     color_gain: float = 1.0,
 ):
-    """Sharded fast-path map update: (allocate + integrate + splat predict).
+    """Sharded splat-path map update: (allocate + integrate + splat predict).
 
     One shard_map call per frame covering all map work — the sharded
-    equivalent of engine/slam.step's `use_splat` fast path, running the
-    SAME group-addressed in-place Pallas kernels per shard on TPU.
+    equivalent of engine/slam.step's `use_splat` path.
     Returns (ShardedBlockMap, RaycastMaps).
     """
     from instancefusion_tpu.ops.raycast import RaycastMaps
@@ -977,7 +927,7 @@ def _reshard_shard(
     cnt_n = take(cnt_l, 0.0) if with_votes else cnt_l
 
     # --- append received rows (prefix-sum slots after the keepers;
-    # the last group stays reserved for the Pallas group-kernel pad)
+    # the last group stays reserved, blocks.RESERVED_SLOTS)
     order = jnp.cumsum(rc_valid.astype(jnp.int32)) - 1
     slot = n_keep + order
     fits = rc_valid & (slot < cl - blk.RESERVED_SLOTS)

@@ -1,12 +1,11 @@
-"""Checkpoint / resume of the full engine state (orbax).
+"""Checkpoint / resume of the full engine state (one npz per step).
 
 The reference has no mid-run persistence — only a final surfel `savePly`
 (SURVEY.md §6 "Checkpoint / resume").  Here the whole state is an explicit
-pytree (SlamState + BackendState + config digest), so checkpointing is a
-single orbax save; resume restores and continues bit-exactly.  This is
-also the failure-recovery story for multi-host runs: pod slices are
-gang-scheduled, so recovery = restart-from-checkpoint, not in-job
-elasticity.
+pytree (SlamState + BackendState + config digest), so checkpointing is one
+npz of its leaves; resume restores and continues bit-exactly.  This is
+also the failure-recovery story for multi-device runs: recovery =
+restart-from-checkpoint, not in-job elasticity.
 """
 
 from __future__ import annotations
@@ -20,13 +19,6 @@ from typing import Any
 import jax
 import numpy as np
 
-try:  # orbax is baked into the image; guard anyway for minimal installs.
-    import orbax.checkpoint as ocp
-
-    _HAVE_ORBAX = True
-except Exception:  # pragma: no cover
-    _HAVE_ORBAX = False
-
 
 def config_digest(cfg: Any) -> str:
     """Stable digest of the frozen config (refuse resume on mismatch)."""
@@ -38,20 +30,11 @@ def save(path: str, state: Any, cfg: Any, step: int) -> None:
     """Save a state pytree + config digest at `path`/step_<N>."""
     os.makedirs(path, exist_ok=True)
     meta = {"step": step, "config": config_digest(cfg)}
-    if _HAVE_ORBAX:
-        ckpt = ocp.StandardCheckpointer()
-        ckpt.save(
-            os.path.join(os.path.abspath(path), f"step_{step}"),
-            jax.device_get(state),
-            force=True,
-        )
-        ckpt.wait_until_finished()
-    else:  # numpy fallback keeps the feature alive without orbax
-        leaves, treedef = jax.tree_util.tree_flatten(jax.device_get(state))
-        np.savez(
-            os.path.join(path, f"step_{step}.npz"),
-            **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)},
-        )
+    leaves = jax.tree_util.tree_leaves(jax.device_get(state))
+    np.savez(
+        os.path.join(path, f"step_{step}.npz"),
+        **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)},
+    )
     with open(os.path.join(path, f"step_{step}.meta.json"), "w") as f:
         json.dump(meta, f)
 
@@ -82,16 +65,9 @@ def restore(path: str, example_state: Any, cfg: Any, step: int | None = None):
             "checkpoint config mismatch: "
             f"{meta['config']} != {config_digest(cfg)}"
         )
-    if _HAVE_ORBAX:
-        ckpt = ocp.StandardCheckpointer()
-        state = ckpt.restore(
-            os.path.join(os.path.abspath(path), f"step_{step}"),
-            jax.device_get(example_state),
-        )
-    else:
-        data = np.load(os.path.join(path, f"step_{step}.npz"))
-        leaves, treedef = jax.tree_util.tree_flatten(example_state)
-        state = jax.tree_util.tree_unflatten(
-            treedef, [data[f"leaf_{i}"] for i in range(len(leaves))]
-        )
+    data = np.load(os.path.join(path, f"step_{step}.npz"))
+    leaves, treedef = jax.tree_util.tree_flatten(example_state)
+    state = jax.tree_util.tree_unflatten(
+        treedef, [data[f"leaf_{i}"] for i in range(len(leaves))]
+    )
     return state, step

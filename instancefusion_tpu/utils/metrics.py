@@ -1,15 +1,12 @@
-"""Structured per-frame metrics, timers, and roofline accounting.
+"""Structured per-frame metrics and timers.
 
 Replaces the reference's `Stopwatch` (UDP-streamed named CPU timers) and
 GUI counters (SURVEY.md §6 "Metrics / tracing").  Design:
 
-- `FrameMetrics`: one flat dict per frame, written as JSONL — machine-
+- `MetricsWriter`: one flat dict per frame, written as JSONL — machine-
   greppable, TensorBoard-convertible, no GUI dependency.
-- `Timer`: wall-clock phase timers.  On this runtime dispatch is async,
-  so timers only mean something around an explicit fetch; `sync_fetch`
-  forces execution of a pytree and returns a cheap scalar.
-- `roofline`: bytes/FLOPs accounting per kernel invocation vs chip peaks
-  (the BASELINE "speed-of-light" bookkeeping; see also bench.py).
+- `Timer`: wall-clock phase timers.  Dispatch is async, so a phase only
+  times device work when given a pytree to wait for (`sync_tree`).
 """
 
 from __future__ import annotations
@@ -20,18 +17,6 @@ import time
 from typing import Any, IO
 
 import jax
-import jax.numpy as jnp
-
-
-def sync_fetch(tree: Any) -> float:
-    """Force execution of everything `tree` depends on; returns a scalar."""
-    leaves = [x for x in jax.tree_util.tree_leaves(tree) if hasattr(x, "dtype")]
-    if not leaves:
-        return 0.0
-    acc = jnp.zeros((), jnp.float32)
-    for leaf in leaves:
-        acc = acc + jnp.sum(leaf.astype(jnp.float32) * 0.0)
-    return float(acc)
 
 
 class Timer:
@@ -45,7 +30,7 @@ class Timer:
         t0 = time.perf_counter()
         yield
         if sync_tree is not None:
-            sync_fetch(sync_tree)
+            jax.block_until_ready(sync_tree)
         self.times_ms[name] = self.times_ms.get(name, 0.0) + (
             (time.perf_counter() - t0) * 1000.0
         )
@@ -69,30 +54,3 @@ class MetricsWriter:
     def close(self) -> None:
         if self._f:
             self._f.close()
-
-
-# --- roofline accounting (per-chip peaks; v5e-class defaults) -------------
-
-PEAK_BYTES_PER_S = 8.1e11  # ~810 GB/s HBM
-PEAK_FLOP_PER_S = 1.97e14  # bf16; /4 for f32-ish
-
-
-def roofline(bytes_moved: float, flops: float, elapsed_s: float) -> dict:
-    """Fraction of speed-of-light achieved for one kernel/phase."""
-    t_mem = bytes_moved / PEAK_BYTES_PER_S
-    t_flop = flops / PEAK_FLOP_PER_S
-    bound = "memory" if t_mem >= t_flop else "compute"
-    sol = max(t_mem, t_flop)
-    return {
-        "elapsed_ms": elapsed_s * 1e3,
-        "sol_ms": sol * 1e3,
-        "sol_frac": sol / max(elapsed_s, 1e-12),
-        "bound": bound,
-    }
-
-
-def integrate_traffic_bytes(blocks_touched: int, voxels_per_block: int,
-                            with_color: bool) -> float:
-    """HBM bytes for one block-map integrate (read+write sdf/w/color)."""
-    per_voxel = (4 + 4 + (12 if with_color else 0)) * 2
-    return float(blocks_touched * voxels_per_block * per_voxel)

@@ -1,7 +1,7 @@
 """Offline visualization: raycast the map to shaded / instance-colored PNGs.
 
 Replaces the reference's Pangolin GUI (SURVEY.md §2 L7): no interactive
-window on a TPU host, so inspection is headless — render the model from
+window on an accelerator host, so inspection is headless — render the model from
 any pose via the same raycaster the tracker uses, shade with normals (and
 optionally instance colors), write PNGs or an image sequence.
 """

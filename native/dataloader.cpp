@@ -1,6 +1,6 @@
 // Native RGB-D sequence loader with threaded prefetch.
 //
-// TPU-native equivalent of the reference's C++ input layer
+// Equivalent of the reference's C++ input layer
 // (GUI/src/Tools/: RawLogReader for .klg logs, TUM association — expected
 // upstream layout, SURVEY.md §3 "Input readers").  The device pipeline
 // (JAX) must never stall on host-side PNG/JPEG/zlib decode, so decoding

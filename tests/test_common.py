@@ -1,26 +1,27 @@
-"""ops/common.decimate: the TPU one-hot contraction path == stride slicing."""
+"""ops/common.decimate == numpy stride slicing, cropped to full windows."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from instancefusion_tpu.ops.common import decimate
 
+_RNG = np.random.RandomState(7)
+_CASES = [
+    (_RNG.rand(48, 64).astype(np.float32), 2),
+    (_RNG.rand(48, 64, 3).astype(np.float32), 2),
+    (_RNG.rand(120, 160, 3).astype(np.float32), 4),
+    ((_RNG.rand(48, 64) > 0.5), 2),
+    (_RNG.rand(31, 45).astype(np.float32), 3),  # non-divisible: cropped
+]
 
-def _cases():
-    rng = np.random.RandomState(7)
-    yield rng.rand(48, 64).astype(np.float32), 2
-    yield rng.rand(48, 64, 3).astype(np.float32), 2
-    yield rng.rand(120, 160, 3).astype(np.float32), 4
-    yield (rng.rand(48, 64) > 0.5), 2
-    yield rng.rand(31, 45).astype(np.float32), 3  # non-divisible: cropped
 
-
-def test_decimate_matmul_matches_stride_slice():
-    for arr, s in _cases():
-        hs, ws = arr.shape[0] // s, arr.shape[1] // s
-        ref = arr[: hs * s : s, : ws * s : s]
-        got = np.asarray(decimate(jnp.asarray(arr), s, force_matmul=True))
-        assert got.dtype == ref.dtype
-        np.testing.assert_array_equal(got, ref)
+@pytest.mark.parametrize("arr,s", _CASES, ids=["f32", "f32x3", "s4", "bool", "crop"])
+def test_decimate_matches_stride_slice(arr, s):
+    hs, ws = arr.shape[0] // s, arr.shape[1] // s
+    ref = arr[: hs * s : s, : ws * s : s]
+    got = np.asarray(decimate(jnp.asarray(arr), s))
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_decimate_identity():

@@ -89,8 +89,8 @@ def test_engine_blocks_end_to_end():
 
 
 def test_engine_blocks_fast_raycast_paths():
-    """depth-prior bounded march + screen-space normals (the TPU fast
-    paths) must track as accurately as the full-sweep raycast."""
+    """depth-prior bounded march + screen-space normals (the presets'
+    fast paths) must track as accurately as the full-sweep raycast."""
     import dataclasses
 
     from instancefusion_tpu.config import RaycastConfig

@@ -15,6 +15,8 @@ import sys
 
 import pytest
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 _WORKER = r"""
 import sys
 import jax
@@ -100,7 +102,7 @@ def test_two_process_distributed_schur_reduction(tmp_path):
         subprocess.Popen(
             [sys.executable, str(worker), str(pid), "2", port],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            env=env, cwd="/root/repo", text=True,
+            env=env, cwd=_REPO, text=True,
         )
         for pid in range(2)
     ]
@@ -224,7 +226,7 @@ def test_two_process_sharded_engine_steps(tmp_path):
     env.pop("XLA_FLAGS", None)  # one device per process
     # The worker lives in tmp_path, so sys.path[0] is tmp_path, not the
     # repo — make `tests.helpers` importable explicitly.
-    env["PYTHONPATH"] = "/root/repo" + (
+    env["PYTHONPATH"] = _REPO + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""
     )
     port = "12479"
@@ -232,7 +234,7 @@ def test_two_process_sharded_engine_steps(tmp_path):
         subprocess.Popen(
             [sys.executable, str(worker), str(pid), "2", port],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            env=env, cwd="/root/repo", text=True,
+            env=env, cwd=_REPO, text=True,
         )
         for pid in range(2)
     ]
